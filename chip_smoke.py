@@ -10,25 +10,52 @@ quickest proof that the port still builds and starts there:
 2. ``build``           compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc``
                        into ``build/repro_torch/libkernels.so`` and loads it.
 3. ``kernels``         every kernel against its plain PyTorch version on
-                       CUDA tensors, ``torch.equal`` (all three are exact
-                       by construction), at the main-path shapes of both
+                       CUDA tensors, ``torch.equal`` (the softmax, GELU
+                       and matmul are exact by construction), at the
+                       main-path shapes of both
                        KWT models for batch 1 / 8 / 64 / 4096 (KWT-1's
                        matmuls also with int4 per-channel weights) and at
                        ragged shapes; times each beside its plain version, one
                        PyTorch library call and its memory/compute bound.
+   ``lut_attention`` cannot be ``torch.equal``: the kernel's own order of
+   the dot over D moves an occasional score across a 1/32 LUT bin.  In
+   its LUT mode it is held to its plain version (``ref.lut_attention``,
+   one softmax over all keys) at the reference's 0.05, and to the same
+   online softmax over the same key tiles (``ref.lut_attention_tiled``)
+   at a tight bound measured on the card (``ATTN_TIGHT_*`` below), which
+   only rescaling at the reference's tile edges meets; in its exact mode
+   to both at 2e-5 (at the KWT shapes, where some rows spread wider than
+   the kernel's clip of ``m - s`` at 10, to the tiled version, which has
+   the clip).  At the KWT shapes, the reference's
+   sweep shapes (causal and not, several key tiles included) and ragged
+   shapes; bf16 must come out finite.
 4. ``serve_kwt_tiny``  KWT-Tiny (full width and depth) under the ``cuda``
 5. ``serve_kwt_1``     backend, then KWT-1 (12 layers, d 64): request
-                       batches through ``Engine.forward``; logits finite,
-                       ``torch.equal`` to the ``lut`` backend on the card,
-                       close to the same plan on the CPU; the launch
-                       counters of the three wrappers rise by exactly the
-                       expected numbers.
+                       batches through ``Engine.forward``, under
+                       ``attention="xla"`` (logits ``torch.equal`` to the
+                       ``lut`` backend on the card) and ``"flash_lut"``
+                       (logits within ``FLASH_*`` of ``lut`` +
+                       ``flash_lut`` on the card); close to the same plan
+                       on the CPU; the launch counters of the four
+                       wrappers rise by exactly the expected numbers.
+6. ``stream_kwt_tiny`` the always-on stream through ``Engine.stream_step``
+7. ``stream_kwt_1``    under ``cuda`` + ``xla`` and ``cuda`` + ``flash_lut``:
+                       numpy-seeded audio for 64 lanes in chunks of 1, 2
+                       and 5 hops; on every hop once a lane is warm the
+                       logits are ``torch.equal`` to ``Engine.forward`` of
+                       the feature ring's window; counters rise per hop as
+                       per forward; one lane is reset mid-stream and
+                       re-warms; p50 ms per hop and the real-time factor.
 
+The serve phases (4, 5) and the stream phases (6, 7) are the main paths:
+the counters go to 0 just before each pair and are read just after it;
+the launches of the stream phases' check forwards are taken out of the
+stream path's count, which must then equal what its steps launched.
 Any failing phase lets its exception out (non-zero exit); nothing falls
 back to the CPU.  Each phase prints one JSON line; the line before the
 last is ``{"kernels": [...]}`` with, per kernel, its launches on the main
-path, its error against the plain version and its times; the last line is
-``{"ok": true, "device": {...}}``.
+paths, its error against the plain version and its times; the last line
+is ``{"ok": true, "device": {...}}``.
 
 Timing: CUDA events around a run of back-to-back calls of the wrapper,
 median over several runs, after a warm-up; inputs stay resident (the L2
@@ -39,8 +66,9 @@ one launch from Python, not of the arithmetic.
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over the peak for their type
 (1979 TOP/s int8 for the matmul's multiply-adds, 67 TFLOP/s for the
-elementwise float32/int32 work), the published rates of an H100 SXM at
-its full 700 W limit.
+elementwise float32/int32 work and the attention's float32 products,
+4 * B * H * Lq * Lk * D), the published rates of an H100 SXM at its full
+700 W limit.
 """
 
 from __future__ import annotations
@@ -65,6 +93,8 @@ from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.tree import tree_map  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import kwt  # noqa: E402
+from repro_torch.stream import engine as stream  # noqa: E402
+from repro_torch.stream import features  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -79,6 +109,30 @@ TINY_LUT_ATOL = 2.0 ** -5     # card vs CPU, same plan: one activation LSB
 KWT1_LUT_ATOL = 0.5           # 12 layers amplify an LSB flip; see PERF.md
 KWT1_MIN_ARGMAX_AGREE = 0.75
 CPU_BATCHES = (1, 8)          # batches also answered by the same plan on the CPU
+
+# lut_attention against the online softmax over the same key tiles
+# (ref.lut_attention_tiled) and, LUT mode, its plain version
+ATTN_EXACT_TOL = 2e-5         # rtol and atol, exact mode (the reference's)
+ATTN_LUT_ATOL = 0.05          # LUT mode against the plain version: the
+                              # reference's own bound
+# LUT mode against the tiled version, tight: within
+# 1.2e-6 but where a score lands on a 1/32 bin edge, which moves its row
+# by up to a few 1e-4 (measured on the card at the KWT shapes, PERF.md:
+# 4.9e-4, one row of 99 at KWT-1 B = 1, 99.0 % of elements within 1e-5).  Rescaling
+# at other key-tile edges than the reference's leaves about half of the
+# elements outside 1e-5 (tests/test_torch_attention.py), so these terms
+# hold the kernel to the reference's edges where the keys are several tiles.
+ATTN_TIGHT_ATOL = 0.01
+ATTN_TIGHT_MIN_SHARE = 0.98   # share of elements within 1e-5
+# cuda + flash_lut logits against lut + flash_lut (kernel vs plain
+# attention, then the same integer pipeline), card and CPU alike; measured
+# (PERF.md): KWT-Tiny 0.0 at every batch, KWT-1 0.0 at B = 1 and 0.1455
+# at B = 64 (argmax agreement 0.969, 2 of 64 rows) — an attention output
+# moved one activation LSB and 11 layers amplified it.  KWT-1's limits are
+# about twice the measured distance, and 4 of 64 rows.
+FLASH_TINY_ATOL = 2.0 ** -5   # one activation LSB
+FLASH_KWT1_ATOL = 0.3
+FLASH_KWT1_MIN_ARGMAX_AGREE = 0.9
 
 
 def emit(obj) -> None:
@@ -184,7 +238,9 @@ def model_shapes(cfg, b: int) -> dict:
     """The shapes the main path hands each kernel for a batch of ``b``."""
     f, t = cfg.input_dim
     s, d, dh, ff = t + 1, cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    h, kv = cfg.n_heads, cfg.n_kv_heads
     return {"softmax": (b * s, s), "gelu": (b * s, ff),
+            "attention": (b, h, kv, s, s, dh),
             "matmul": [("proj", b * t, f, d), ("qkv", b * s, d, dh),
                        ("wo", b * s, dh, d), ("w1", b * s, d, ff),
                        ("w2", b * s, ff, d), ("head", b, d, cfg.n_classes)]}
@@ -283,13 +339,89 @@ def check_matmul_raw(dev, gen, m, k, n, shift, out_int16):
                 got, want)}
 
 
+def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
+                    timed=False, exact_vs_plain=True):
+    """The wrapper against ``ref.lut_attention_tiled`` at the wrapper's
+    key tile and against its plain version ``ref.lut_attention``, on the
+    same CUDA tensors.  ``shape`` = (b, hq, hkv, lq, lk, d).  The exact
+    mode keeps the reference kernel's clip of ``m - s`` at 10, which the
+    plain version lacks: ``exact_vs_plain=False`` where rows spread wider."""
+    b, hq, hkv, lq, lk, d = shape
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)))
+    mode = "lut" if use_lut else "exact"
+    block_k = ops.fit_block(lk, ops.ATTN_BLOCK_K)
+    got = ops.lut_attention(q, k, v, causal=causal, use_lut=use_lut)
+    want = ref.lut_attention_tiled(q, k, v, causal=causal, use_lut=use_lut,
+                                   block_k=block_k)
+    plain = ref.lut_attention(q, k, v, causal=causal, softmax_mode=mode)
+    plain_err = max_abs_err(got, plain)
+    torch.cuda.synchronize()
+    what = f"lut_attention {mode} causal={causal} {shape} {dtype}"
+    if got.dtype != q.dtype or got.shape != q.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} out")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    share = float((diff <= 1e-5).double().mean()) if diff.numel() else 1.0
+    if dtype == torch.float32:
+        if use_lut:
+            ok = err <= ATTN_TIGHT_ATOL and share >= ATTN_TIGHT_MIN_SHARE \
+                and plain_err <= ATTN_LUT_ATOL
+        else:
+            ok = all(bool(torch.allclose(got, w, rtol=ATTN_EXACT_TOL,
+                                         atol=ATTN_EXACT_TOL))
+                     for w in ((want, plain) if exact_vs_plain else (want,)))
+        if not ok:
+            raise AssertionError(f"{what}: max abs err {err}, share within "
+                                 f"1e-5 {share} (tiled version), max abs err "
+                                 f"{plain_err} (plain version)")
+    row = {"variant": mode + (" causal" if causal else ""),
+           "dtype": str(dtype).split(".")[1], "shape_bhhlld": list(shape),
+           "block_k": block_k, "equal": False,
+           "max_abs_err": err, "within_1e-5": share,
+           "plain_max_abs_err": plain_err}
+    del got, want, plain, diff
+    if timed:
+        nbytes = q.element_size() * (2 * b * hq * lq * d + 2 * b * hkv * lk * d) \
+            + 4 * 320
+        b_ms, by = bound(nbytes, 4.0 * b * hq * lq * lk * d, F32_OPS_PER_S)
+        numel = b * hq * lq * lk
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by,
+                   ms=time_ms(lambda: ops.lut_attention(
+                       q, k, v, causal=causal, use_lut=use_lut), numel),
+                   plain_ms=time_ms(lambda: ref.lut_attention(
+                       q, k, v, causal=causal, softmax_mode=mode), numel),
+                   library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal),
+                                      numel))
+    return row
+
+
+# the reference's sweep (tests/test_kernels.py): MHA, GQA, MQA, decode and
+# the multi-tile long key axis; then ragged shapes
+ATTN_SWEEP = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 64, 64, 32),
+              (1, 8, 1, 128, 128, 64), (2, 4, 2, 1, 64, 32),
+              (1, 2, 2, 64, 256, 32)]
+ATTN_RAGGED = [(3, 2, 1, 27, 27, 8), (1, 2, 2, 30, 1000, 32),
+               (2, 2, 1, 27, 27, 72), (1, 4, 2, 40, 20, 16)]
+
+
 def phase_kernels(dev, configs) -> dict:
     """Returns, per kernel, its checked-and-timed rows."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = {"lut_softmax": [], "lut_gelu": [], "int8_matmul": []}
+    rows = {"lut_softmax": [], "lut_gelu": [], "int8_matmul": [],
+            "lut_attention": []}
     for cfg in configs:
         for b in BATCHES:
             sh = model_shapes(cfg, b)
+            # the LUT mode is the one the main path runs, and is timed
+            for use_lut in (True, False):
+                r = check_attention(dev, gen, sh["attention"], False, use_lut,
+                                    timed=use_lut, exact_vs_plain=False)
+                rows["lut_attention"].append(
+                    {"model": cfg.name, "batch": b, **r})
             for fixed in (True, False):
                 r = check_softmax(dev, gen, *sh["softmax"], fixed, timed=True)
                 rows["lut_softmax"].append({"model": cfg.name, "batch": b, **r})
@@ -324,7 +456,16 @@ def phase_kernels(dev, configs) -> dict:
                            (-3, False), (-9, True)):
             rows["int8_matmul"].append(
                 check_matmul_raw(dev, gen, m, k, n, shift, i16))
-    emit({"phase": "kernels", "all_equal": True,
+    for shape in ATTN_SWEEP + ATTN_RAGGED:
+        for causal in (True, False):
+            for use_lut in (True, False):
+                rows["lut_attention"].append(
+                    check_attention(dev, gen, shape, causal, use_lut))
+    for causal in (True, False):
+        rows["lut_attention"].append(check_attention(
+            dev, gen, (1, 2, 2, 32, 32, 32), causal, True,
+            dtype=torch.bfloat16))
+    emit({"phase": "kernels", "all_checks_passed": True,
           "checks": {k: len(v) for k, v in rows.items()}, "rows": rows})
     return rows
 
@@ -364,13 +505,31 @@ class CountOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def expected_launches(cfg, forwards: int) -> dict:
-    """Per forward: one softmax and one GELU per layer; every linear is a
-    matmul launch — patch embed, head, and Q, K, V, wo, w1, w2 per layer
-    (Q/K/V go as three launches)."""
-    return {"lut_softmax": cfg.n_layers * forwards,
+def expected_launches(cfg, forwards: int, attention: str = "xla") -> dict:
+    """Per forward (or stream hop): one GELU per layer, and one softmax per
+    layer under ``attention="xla"`` or one attention launch per layer
+    under ``"flash_lut"``; every linear is a matmul launch — patch embed,
+    head, and Q, K, V, wo, w1, w2 per layer (Q/K/V go as three launches)."""
+    flash = attention == "flash_lut"
+    return {"lut_softmax": 0 if flash else cfg.n_layers * forwards,
             "lut_gelu": cfg.n_layers * forwards,
-            "int8_matmul": (2 + 6 * cfg.n_layers) * forwards}
+            "int8_matmul": (2 + 6 * cfg.n_layers) * forwards,
+            "lut_attention": cfg.n_layers * forwards if flash else 0}
+
+
+def check_flash_logits(what, cfg, got, want) -> dict:
+    """cuda + flash_lut against lut + flash_lut: kernel against plain
+    attention, then the same integer pipeline, in which a moved LSB of
+    the attention output can be amplified by the layers after it."""
+    got, want = got.cpu(), want.cpu()
+    diff = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    tol = FLASH_TINY_ATOL if cfg.n_layers == 1 else FLASH_KWT1_ATOL
+    if diff > tol or (cfg.n_layers > 1 and agree < FLASH_KWT1_MIN_ARGMAX_AGREE):
+        raise AssertionError(f"{what}: cuda + flash_lut logits {diff} from lut "
+                             f"+ flash_lut (tolerance {tol}), argmax "
+                             f"agreement {agree}")
+    return {"max_abs": diff, "argmax_agree": agree}
 
 
 def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
@@ -379,18 +538,22 @@ def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
     rng = np.random.default_rng(1)
     out = {"phase": f"serve_{cfg.name.replace('-', '_')}", "model": cfg.name,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "plans": []}
-    for label, recipe_kw in recipes:
+    for label, recipe_kw, attention in recipes:
         params = convert.from_numpy_tree(np_tree, dev)
         recipe = None if recipe_kw is None else \
             runtime.QuantRecipe.from_config(cfg, **recipe_kw)
         eng = runtime.compile_model(cfg, params, backend="cuda",
-                                    recipe=recipe, device=dev)
+                                    recipe=recipe, attention=attention,
+                                    device=dev)
         plain = runtime.compile_model(cfg, params, backend="lut",
-                                      recipe=recipe, device=dev)
+                                      recipe=recipe, attention=attention,
+                                      device=dev)
         on_cpu = runtime.compile_model(
             cfg, convert.from_numpy_tree(np_tree, "cpu"), backend="lut",
-            recipe=recipe, device="cpu")
-        plan = {"recipe": label, "describe": eng.describe(),
+            recipe=recipe, attention=attention, device="cpu")
+        flash = attention == "flash_lut"
+        plan = {"recipe": label, "attention": attention,
+                "describe": eng.describe(),
                 "rom_bytes": eng.rom_bytes, "lut_bytes": eng.lut_bytes,
                 "param_bytes": eng.param_bytes, "batches": []}
         with CountOps() as counter:
@@ -398,7 +561,7 @@ def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
         plan["aten_ops_per_forward"] = counter.n
         for b in batches:
             before = ops.launch_counts()
-            lat, logits = [], None
+            lat, logits, vs_plain = [], None, []
             for _ in range(requests):
                 mfcc = rng.normal(0, 0.5, (b, *cfg.input_dim)).astype(np.float32)
                 torch.cuda.synchronize()
@@ -410,7 +573,10 @@ def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
                         not bool(torch.isfinite(logits).all()):
                     raise AssertionError(f"{cfg.name} B={b}: bad logits")
                 want = plain.forward(mfcc)
-                if not torch.equal(logits, want):
+                if flash:
+                    vs_plain.append(check_flash_logits(
+                        f"{cfg.name} {label} B={b}", cfg, logits, want))
+                elif not torch.equal(logits, want):
                     raise AssertionError(
                         f"{cfg.name} {label} B={b}: cuda plan differs from the "
                         f"lut plan on the card by {max_abs_err(logits, want)}; "
@@ -418,30 +584,155 @@ def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
                         "kernel other operands than the plain path gets")
             after = ops.launch_counts()
             rose = {k: after[k] - before[k] for k in after}
-            want_rise = expected_launches(cfg, requests)
+            want_rise = expected_launches(cfg, requests, attention)
             if rose != want_rise:
                 raise AssertionError(f"{cfg.name} B={b}: launch counters rose "
                                      f"by {rose}, expected {want_rise}")
             entry = {"batch": b, "requests": requests,
                      "p50_ms": statistics.median(lat), "launches": rose}
+            if flash:
+                entry["vs_lut_flash_on_card"] = {
+                    "max_abs": max(v["max_abs"] for v in vs_plain),
+                    "argmax_agree": min(v["argmax_agree"] for v in vs_plain)}
             if b in CPU_BATCHES:
                 ref_logits = on_cpu.forward(mfcc)
-                diff = (logits.cpu() - ref_logits).abs()
-                agree = float((logits.cpu().argmax(-1)
-                               == ref_logits.argmax(-1)).float().mean())
-                entry.update(vs_cpu_max_abs=float(diff.max()),
-                             vs_cpu_argmax_agree=agree)
-                tol = TINY_LUT_ATOL if cfg.n_layers == 1 else KWT1_LUT_ATOL
-                if float(diff.max()) > tol or (
-                        cfg.n_layers > 1 and agree < KWT1_MIN_ARGMAX_AGREE):
-                    raise AssertionError(
-                        f"{cfg.name} {label} B={b}: card vs CPU lut plan "
-                        f"max abs {float(diff.max())} (tolerance {tol}), "
-                        f"argmax agreement {agree}")
+                if flash:
+                    v = check_flash_logits(f"{cfg.name} {label} B={b} vs CPU",
+                                           cfg, logits, ref_logits)
+                    entry.update(vs_cpu_max_abs=v["max_abs"],
+                                 vs_cpu_argmax_agree=v["argmax_agree"])
+                else:
+                    diff = (logits.cpu() - ref_logits).abs()
+                    agree = float((logits.cpu().argmax(-1)
+                                   == ref_logits.argmax(-1)).float().mean())
+                    entry.update(vs_cpu_max_abs=float(diff.max()),
+                                 vs_cpu_argmax_agree=agree)
+                    tol = TINY_LUT_ATOL if cfg.n_layers == 1 else KWT1_LUT_ATOL
+                    if float(diff.max()) > tol or (
+                            cfg.n_layers > 1 and agree < KWT1_MIN_ARGMAX_AGREE):
+                        raise AssertionError(
+                            f"{cfg.name} {label} B={b}: card vs CPU lut plan "
+                            f"max abs {float(diff.max())} (tolerance {tol}), "
+                            f"argmax agreement {agree}")
             plan["batches"].append(entry)
         out["plans"].append(plan)
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 6 + 7: the always-on stream
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNKS = (1, 2, 5)     # hops per stream_step, cycled
+RESET_LANE = 3
+
+
+def _rise(before: dict) -> dict:
+    after = ops.launch_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def phase_stream(name: str, dev, lanes: int, hops: int, reset_at: int) -> dict:
+    """Stream ``lanes`` lanes of seeded audio through ``Engine.stream_step``
+    for ``hops`` hops in chunks cycling through ``STREAM_CHUNKS``, under the
+    cuda backend with both attention realisations.  On every hop, the
+    logits of every warm lane must be ``torch.equal`` to ``Engine.forward``
+    of the feature ring's window (a lane that is not warm holds zeroed
+    embeddings where the window holds zeroed features, whose embedding is
+    the bias).  Lane ``RESET_LANE`` is reset at hop ``reset_at`` and must
+    be warm again at the end.
+
+    The check forwards launch kernels too: the phase returns, besides its
+    line, the launches of its ``stream_step`` calls and those of its check
+    forwards, so that the main path's count can leave the latter out."""
+    cfg = registry.get(name).config
+    fcfg = features.FrontendConfig(n_mfcc=cfg.input_dim[0])
+    t, hop = stream.window_frames(cfg), fcfg.hop_len
+    if hops < reset_at + t:
+        raise ValueError("the reset lane would not re-warm")
+    np_tree = seeded_params(cfg, 0, dev)
+    rng = np.random.default_rng(2)
+    audio = torch.from_numpy((0.1 * rng.normal(size=(lanes, hops * hop)))
+                             .astype(np.float32)).to(dev)
+    hop_ms = 1e3 * hop / fcfg.sample_rate
+    out = {"phase": f"stream_{cfg.name.replace('-', '_')}", "model": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_mfcc": fcfg.n_mfcc, "window_frames": t, "lanes": lanes,
+           "hops": hops, "chunk_hops": list(STREAM_CHUNKS),
+           "reset": {"lane": RESET_LANE, "at_hop": reset_at}, "plans": []}
+    steps_rose = dict.fromkeys(ops.launch_counts(), 0)
+    checks_rose = dict.fromkeys(steps_rose, 0)
+    for attention in ("xla", "flash_lut"):
+        eng = runtime.compile_model(cfg, convert.from_numpy_tree(np_tree, dev),
+                                    backend="cuda", attention=attention,
+                                    device=dev)
+        state = stream.init_stream_state(cfg, fcfg, lanes, device=dev)
+        per_hop = expected_launches(cfg, 1, attention)
+        lat, rtf, ks, checked, step, i, reset = [], [], [], 0, 0, 0, False
+        first_warm = None
+        while i < hops:
+            k = min(STREAM_CHUNKS[step % len(STREAM_CHUNKS)], hops - i)
+            if not reset and i >= reset_at:
+                state = stream.reset_lane(state, RESET_LANE)
+                warm = stream.warm(state).cpu()
+                if bool(warm[RESET_LANE]) or not bool(warm.sum() == lanes - 1):
+                    raise AssertionError(f"reset_lane left warm = {warm}")
+                reset = True
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, logits = eng.stream_step(state, audio[:, i * hop:(i + k) * hop],
+                                            fcfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rose = _rise(before)
+            if rose != per_hop:
+                raise AssertionError(f"{cfg.name} {attention} hop {i}: counters "
+                                     f"rose by {rose}, expected {per_hop}")
+            steps_rose = {n: steps_rose[n] + rose[n] for n in rose}
+            lat.append(ms)
+            rtf.append(ms / (k * hop_ms))
+            ks.append(k)
+            i, step = i + k, step + 1
+            if tuple(logits.shape) != (lanes, cfg.n_classes) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{cfg.name} hop {i}: bad logits")
+            warm = stream.warm(state)
+            if bool(warm.any()):
+                first_warm = i if first_warm is None else first_warm
+                before = ops.launch_counts()
+                want = eng.forward(stream.window_mfcc(state))
+                rose = _rise(before)
+                if rose != per_hop:
+                    raise AssertionError(f"the check forward launched {rose}")
+                checks_rose = {n: checks_rose[n] + rose[n] for n in rose}
+                if not torch.equal(logits[warm], want[warm]):
+                    raise AssertionError(
+                        f"{cfg.name} {attention} hop {i}: streaming logits "
+                        f"differ from the offline forward of the window by "
+                        f"{max_abs_err(logits, want)}")
+                checked += 1
+        if not bool(stream.warm(state).all()):
+            raise AssertionError(f"lane {RESET_LANE} did not re-warm")
+        off = features.mfcc(audio, fcfg)[..., -t:]
+        frames = stream.window_mfcc(state)
+        out["plans"].append({
+            "attention": attention, "describe": eng.describe(),
+            "steps": step, "first_warm_hop": first_warm,
+            "warm_steps_checked_equal": checked,
+            "p50_ms_per_step": statistics.median(lat),
+            "p50_rtf": statistics.median(rtf),
+            "p50_ms_by_chunk": {k: statistics.median(
+                [m for m, kk in zip(lat, ks) if kk == k]) for k in STREAM_CHUNKS},
+            "launches_per_step": per_hop,
+            "frames_vs_offline_mfcc": {
+                "max_abs": max_abs_err(frames, off),
+                "equal": bool(torch.equal(frames, off))}})
+    out["launches"] = steps_rose
+    out["check_forward_launches"] = checks_rose
+    emit(out)
+    return steps_rose, checks_rose
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +746,8 @@ SOURCES = {
                  "src/repro/kernels/lut_gelu.py:49"),
     "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul.py:53"),
+    "lut_attention": ("src/repro_torch/csrc/lut_attention.cu",
+                      "src/repro/kernels/lut_attention.py:98"),
 }
 TIMED_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes")
 
@@ -465,6 +758,7 @@ def _variants(rows: list, model: str, batch: int, tag) -> list:
         v = out.setdefault(r["variant"], {"variant": r["variant"], "equal": True,
                                           "shapes_checked": 0, "max_abs_err": 0.0})
         v["shapes_checked"] += 1
+        v["equal"] = v["equal"] and r["equal"]
         v["max_abs_err"] = max(v["max_abs_err"], r["max_abs_err"])
         if "ms" in r and r.get("model") == model and r.get("batch") == batch \
                 and r.get("tag") == tag:
@@ -476,30 +770,38 @@ def kernels_line(rows: dict, launches: dict, headline_model: str,
                  headline_batch: int) -> dict:
     """One entry per kernel.  The headline numbers are those of the
     variant the main path runs (Q8.24 softmax, nearest GELU, the float32
-    epilogue at the MLP's first linear) at ``headline_model`` /
-    ``headline_batch``; ``variants`` sums up every checked variant (all
-    shapes, ragged ones included) with its own headline times where it
-    was timed.  The ``kernels`` phase line above holds every row."""
+    epilogue at the MLP's first linear, LUT attention) at
+    ``headline_model`` / ``headline_batch``; ``variants`` sums up every
+    checked variant (all shapes, ragged ones included) with its own
+    headline times where it was timed.  ``launches`` is the sum over the
+    main paths, ``launches_by_path`` each path's own count.  The
+    ``kernels`` phase line above holds every row."""
     main_variant = {"lut_softmax": lambda r: r["variant"] == "fixed",
                     "lut_gelu": lambda r: r["variant"] == "nearest",
-                    "int8_matmul": lambda r: r.get("tag") == "w1"}
+                    "int8_matmul": lambda r: r.get("tag") == "w1",
+                    "lut_attention": lambda r: r["variant"] == "lut"}
     entries = []
     for name, (source, replaces) in SOURCES.items():
         head = next(r for r in rows[name]
                     if r.get("model") == headline_model
                     and r.get("batch") == headline_batch
                     and main_variant[name](r))
-        if launches[name] <= 0:
-            raise AssertionError(f"the main path launched {name} no time")
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        if min(by_path.values()) <= 0:
+            raise AssertionError(f"a main path launched {name} no time: "
+                                 f"{by_path}")
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "shape": head.get("shape", head.get("shape_mkn")),
-            "model": headline_model, "batch": headline_batch, "equal": True,
+            "shape": head.get("shape", head.get("shape_mkn",
+                                                head.get("shape_bhhlld"))),
+            "model": headline_model, "batch": headline_batch,
+            "equal": all(r["equal"] for r in rows[name]),
             "variants": _variants(rows[name], headline_model, headline_batch,
                                   head.get("tag"))})
     return {"kernels": entries}
@@ -512,16 +814,31 @@ def main() -> None:
     tiny, kwt1 = registry.get("kwt-tiny").config, registry.get("kwt-1").config
     rows = phase_kernels(dev, (tiny, kwt1))
 
-    # The main path.  Every count goes to 0 just before it and is read just
-    # after it: launches made above to compare kernels do not count.
+    # The main paths.  Every count goes to 0 just before each and is read
+    # just after it: launches made above to compare kernels do not count.
+    launches = {}
     ops.reset_launch_counts()
     phase_serve("kwt-tiny", dev, (1, 8, 64, 4096),
-                [("int8 (Table V)", None)], requests=5)
+                [("int8 (Table V)", None, "xla"),
+                 ("int8 (Table V)", None, "flash_lut")], requests=5)
     phase_serve("kwt-1", dev, (1, 64),
-                [("int8 (Table V defaults)", None),
+                [("int8 (Table V defaults)", None, "xla"),
                  ("int4 per-channel", dict(bits=4, weight_exponent=4,
-                                           per_channel=True))])
-    launches = ops.launch_counts()
+                                           per_channel=True), "xla"),
+                 ("int8 (Table V defaults)", None, "flash_lut")])
+    launches["serve"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    runs = [phase_stream("kwt-tiny", dev, lanes=64, hops=64, reset_at=30),
+            phase_stream("kwt-1", dev, lanes=64, hops=216, reset_at=104)]
+    counted = ops.launch_counts()
+    # the stream path's own launches: what the counters read less what the
+    # check forwards added, which must be what its stream_step calls added
+    launches["stream"] = {n: counted[n] - sum(c[n] for _, c in runs)
+                          for n in counted}
+    steps = {n: sum(s[n] for s, _ in runs) for n in counted}
+    if launches["stream"] != steps:
+        raise AssertionError(f"stream launches {launches['stream']} are not "
+                             f"those of its steps, {steps}")
 
     emit(kernels_line(rows, launches, "kwt-1", 64))
     print(info["nvidia_smi"], flush=True)

@@ -21,14 +21,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.quant import QTensor
+from repro_torch.device import resolve_device
 
 _QT_FIELDS = ("values", "exponent", "axis_exponents", "bits", "logical_shape")
 
 
 def qtensor_from_numpy(values, exponent, axis_exponents=None, bits=8,
-                       logical_shape=None, device="cpu") -> QTensor:
+                       logical_shape=None, device=None) -> QTensor:
     """A stored-integer leaf from its numpy parts (no re-quantisation: the
-    payload bytes are taken as they are)."""
+    payload bytes are taken as they are).  ``device=None`` is the card."""
+    device = resolve_device(device)
     axis = None if axis_exponents is None else \
         torch.from_numpy(np.array(axis_exponents)).to(device)
     shape = None if logical_shape is None else tuple(int(s) for s in logical_shape)
@@ -45,8 +47,10 @@ def _qtensor_fields(leaf) -> dict | None:
     return None
 
 
-def from_numpy_tree(tree: Any, device="cpu") -> Any:
-    """numpy tree (reference layout) -> the port's tree on ``device``."""
+def from_numpy_tree(tree: Any, device=None) -> Any:
+    """numpy tree (reference layout) -> the port's tree on ``device``
+    (``None`` is the card, and raises where there is none)."""
+    device = resolve_device(device)
     fields = _qtensor_fields(tree)
     if fields is not None:
         return qtensor_from_numpy(**fields, device=device)

@@ -41,6 +41,10 @@ SIGNATURES = {
     "lut_gelu_launch": (_P, _P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _P),
     # x, w, out, col_scale, m, k, n, shift, clip16, out_mode, scale, stream
     "int8_matmul_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, exp_tab, out, b, hq, hkv, lq, lk, d, block_k, causal, use_lut,
+    # is_bf16, scale, stream
+    "lut_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

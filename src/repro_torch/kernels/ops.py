@@ -5,10 +5,9 @@ A wrapper launches its kernel for a tensor on a CUDA device and takes the
 kernel's plain version (``kernels.ref``) only for a tensor on the CPU —
 there is no fallback: if the kernels do not build, a CUDA call raises.
 
-The reference's ``pad_to_block`` / ``fit_block`` helpers exist only to
-meet the TPU compiler's (8, 128) tile rule; the CUDA kernels mask their
-ragged edges themselves, so nothing is padded here and the helpers are
-not ported.
+The CUDA kernels mask their ragged edges themselves, so nothing is padded
+here and the reference's ``pad_to_block`` is not ported.  ``fit_block``
+is: the attention kernel's key tiles must end where the reference's do.
 """
 
 from __future__ import annotations
@@ -16,10 +15,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import int8_matmul as _mm
+from repro_torch.kernels import lut_attention as _attn
 from repro_torch.kernels import lut_gelu as _gelu
 from repro_torch.kernels import lut_softmax as _sm
 
-_KERNEL_MODULES = {"lut_softmax": _sm, "lut_gelu": _gelu, "int8_matmul": _mm}
+_KERNEL_MODULES = {"lut_softmax": _sm, "lut_gelu": _gelu, "int8_matmul": _mm,
+                   "lut_attention": _attn}
+
+# the reference's preferred attention key tile (its DEFAULT_BK)
+ATTN_BLOCK_K = 128
+
+
+def fit_block(size: int, preferred: int) -> int:
+    """Largest power-of-two shrink of ``preferred`` that divides ``size``.
+
+    Kernels require the grid to tile the (padded) array exactly; this
+    replaces the per-wrapper ``while size % b: b //= 2`` loops.  Always
+    >= 1 for positive sizes (1 divides everything).
+    """
+    assert size > 0 and preferred > 0, (size, preferred)
+    b = min(preferred, size)
+    while size % b:
+        b //= 2
+    return max(b, 1)
 
 
 def launch_counts() -> dict:
@@ -86,3 +104,20 @@ def int8_matmul_raw(x_int: torch.Tensor, w_int: torch.Tensor, *,
                     shift: int = 0, out_int16: bool = False) -> torch.Tensor:
     """The raw accumulator of the kernel: int32, or int16 after the clip."""
     return _mm.int8_matmul_raw(x_int, w_int, shift=shift, out_int16=out_int16)
+
+
+def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, use_lut: bool = True,
+                  scale: float | None = None) -> torch.Tensor:
+    """Flash attention with LUT-exp softmax; [B,H,L,D] GQA layout.
+
+    The key tile is the reference's, ``fit_block(Lk, 128)``: the online
+    rescale is a LUT probe, so the result depends on where the tiles end.
+    The reference's query tile ``fit_block(Lq, 128)`` changes no result
+    (query rows are independent) and is left to the kernel.
+    """
+    d = q.shape[-1]
+    scale = (d ** -0.5) if scale is None else scale
+    return _attn.lut_attention(q, k, v, causal=causal, use_lut=use_lut,
+                               scale=scale,
+                               block_k=fit_block(k.shape[2], ATTN_BLOCK_K))

@@ -75,3 +75,119 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, *, x_exp: int,
     q = quant.qmatmul(quant.QTensor(x_int, x_exp), quant.QTensor(w_int, w_exp),
                       out_exponent=out_exp, residual_bits=residual_bits)
     return q.dequantize()
+
+
+def masked_lut_softmax(s: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """LUT softmax with *structural* masking: masked scores never enter the
+    numerator sum (mirrors the C pipeline, which only computes valid
+    entries) — avoids the e^{-10} clip leak that -inf masking would cause.
+    A fully masked row is zeros (the reference's oracle divides 0 by 0
+    there; its kernel, and this port's, give 0).
+    """
+    s = s.to(torch.float32)
+    neg = torch.finfo(torch.float32).min
+    sm = s if mask is None else torch.where(mask, s, neg)
+    m = sm.amax(dim=-1, keepdim=True)
+    z = (m - s).clamp(0.0, lutlib.EXP_RANGE)
+    num = lutlib.bank_tensors(s.device)["exp_f32"][approx._exp_index_f32(z)]
+    if mask is not None:
+        num = torch.where(mask, num, 0.0)
+    # an unmasked row sums to at least 1 (its max lane is EXP_F32[0] = 1),
+    # so the clamp changes nothing but a fully masked row
+    return num / num.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+
+
+def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, softmax_mode: str = "lut",
+                  scale: float | None = None) -> torch.Tensor:
+    """Scaled-dot-product attention with LUT softmax (eq 1 + eq 10), the
+    whole key axis in one softmax, as the reference's oracle: the plain
+    version of the attention kernel.  Where the keys are several tiles the
+    kernel is held tightly to :func:`lut_attention_tiled` instead.
+
+    q: [B, Hq, Lq, D], k/v: [B, Hkv, Lk, D] with Hq % Hkv == 0 (GQA: query
+    head ``h`` reads key/value head ``h // (Hq // Hkv)``).  Causal masking
+    right-aligns the queries against the keys (query ``i`` sees keys up to
+    ``i + Lk - Lq``); a query that sees no key (Lq > Lk) gets zeros, as
+    from the kernel.  Computed in float32, returned in ``q.dtype``.
+    """
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, Hkv={hkv}")
+    group = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    qf = q.to(torch.float32).reshape(b, hkv, group, lq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(torch.float32)) * scale
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device).tril(
+        diagonal=lk - lq) if causal else None
+    if softmax_mode == "exact":
+        sm = s if mask is None else \
+            torch.where(mask, s, torch.finfo(torch.float32).min)
+        p = torch.softmax(sm, dim=-1)
+        if mask is not None:
+            p = torch.where(mask, p, 0.0)
+    elif softmax_mode == "lut":
+        p = masked_lut_softmax(s, mask)
+    else:
+        raise ValueError(f"unknown softmax_mode {softmax_mode!r}; "
+                         "available: lut, exact")
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return out.reshape(b, hq, lq, d).to(q.dtype)
+
+
+_NEG = -1e30   # the reference kernel's mask value: m_new - s never inf - inf
+
+
+def lut_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, use_lut: bool, block_k: int,
+                        scale: float | None = None) -> torch.Tensor:
+    """The reference kernel's online softmax (``_attn_kernel``), one step
+    per key tile of ``block_k`` keys, in its arithmetic: what the
+    flash-LUT attention kernel is held to where the keys are several tiles
+    (``chip_smoke.py``).
+
+    Per tile: ``s = (q . k) * scale`` (masked lanes -1e30), ``m_new =
+    max(m, max s)``, ``p = E(clip(m_new - s, 0, 10))`` (0 on a masked lane,
+    or, non-causal, where ``s <= -5e29``), ``alpha = E(clip(m_new - m, 0,
+    10))``, ``l = alpha * l + sum p``, ``acc = alpha * acc + p @ v``; then
+    ``acc / max(l, 1e-30)``.  ``E`` is the EXP_F32 probe (``use_lut``) or
+    ``exp(-z)``.  ``alpha`` is itself a 1/32-bin probe, so the result
+    depends on ``block_k``: where the keys are several tiles it differs
+    from :func:`lut_attention`'s single softmax by up to a few 1e-3.
+    """
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, Hkv={hkv}")
+    if block_k <= 0 or lk % block_k:
+        raise ValueError(f"block_k={block_k} does not divide Lk={lk}")
+    scale = (d ** -0.5) if scale is None else scale
+    tab = lutlib.bank_tensors(q.device)["exp_f32"]
+
+    def exp_neg(x):
+        z = x.clamp(0.0, lutlib.EXP_RANGE)
+        return tab[approx._exp_index_f32(z)] if use_lut else torch.exp(-z)
+
+    qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, lq, d)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    m = torch.full((b, hkv, hq // hkv, lq, 1), _NEG, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    for kt in range(0, lk, block_k):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf,
+                         kf[:, :, kt:kt + block_k]) * scale
+        if causal:
+            valid = qpos >= torch.arange(kt, kt + block_k, device=q.device)
+            s = torch.where(valid, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = exp_neg(m_new - s)
+        p = torch.where(valid if causal else s > _NEG / 2, p, 0.0)
+        alpha = exp_neg(m_new - m)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                         vf[:, :, kt:kt + block_k])
+        m = m_new
+    out = acc / l.clamp(min=1e-30)
+    return out.reshape(b, hq, lq, d).to(q.dtype)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
+from repro_torch.core.rowwise import rowwise_matmul
 from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -59,12 +60,18 @@ def embed_frames(params, frames, cfg):
     per-time-step [16, 1] patches).
 
     Factored out of :func:`forward` so a streaming engine can embed only
-    newly arrived frames per hop: the product contracts over F per frame,
-    so the result for a frame is independent of which other frames share
-    the batch.
+    newly arrived frames per hop.  The product contracts over F per frame;
+    a float product is taken one frame at a time on the CPU
+    (``core.rowwise``), so that a frame's embedding does not depend on
+    which other frames share the batch.  The integer product is exact.
     """
     x = frames.to(getattr(torch, cfg.dtype))
-    return L.linear(x, params["proj_w"], "btf,fd->btd", cfg) + params["proj_b"]
+    w, eq = params["proj_w"], "btf,fd->btd"
+    if L.executes_int(w, eq, cfg):
+        y = L.linear(x, w, eq, cfg)
+    else:
+        y = rowwise_matmul(x, L.asfloat(w))
+    return y + params["proj_b"]
 
 
 def encode_window(params, x, cfg):

@@ -7,9 +7,14 @@ enters through ``cfg.softmax_mode`` / ``cfg.act_approx`` (LUT
 approximations, ``"cuda"`` = the hand-written kernels) and through
 QTensor weights (int8 / nibble-packed int4).
 
+Cacheless attention runs either the plain einsum path (``sdpa``,
+``cfg.attn_impl == "xla"``) or the flash-LUT attention
+(``attn_impl == "flash_lut"``): the hand-written kernel on the ``cuda``
+plan, its plain version on every other plan.
+
 Waiting for the LM slice of the port: RMSNorm, RoPE, qk-norm, GQA KV
-caches, sliding windows, query-chunked attention, gated MLPs, the
-flash-LUT attention kernel and the quantisation-health taps.
+caches, sliding windows, query-chunked attention, gated MLPs and the
+quantisation-health taps.
 """
 
 from __future__ import annotations
@@ -21,6 +26,13 @@ from repro_torch.core import approx
 from repro_torch.core import quant
 
 _LATER = "belongs to the LM slice of the port (not ported yet)"
+
+
+def executes_int(w, eq: str, cfg) -> bool:
+    """Whether ``linear`` multiplies the stored integers of ``w`` (an
+    exact product whose rows do not depend on each other)."""
+    return isinstance(w, quant.QTensor) and cfg is not None and \
+        cfg.int_exec and quant.int_exec_supported(w, eq)
 
 
 def linear(x, w, eq: str, cfg=None):
@@ -36,15 +48,14 @@ def linear(x, w, eq: str, cfg=None):
     the exact float view per call (``quant.qt_einsum``), bit-identical to
     dequantise-first.
     """
+    if executes_int(w, eq, cfg):
+        q = cfg.quant
+        return quant.int_exec_einsum(
+            eq, x, w,
+            x_exp=q.input_exponent if q is not None else 5,
+            residual_bits=q.residual_bits if q is not None else 16,
+            use_kernel=(cfg.act_approx == "cuda"))
     if isinstance(w, quant.QTensor):
-        if cfg is not None and cfg.int_exec and \
-                quant.int_exec_supported(w, eq):
-            q = cfg.quant
-            return quant.int_exec_einsum(
-                eq, x, w,
-                x_exp=q.input_exponent if q is not None else 5,
-                residual_bits=q.residual_bits if q is not None else 16,
-                use_kernel=(cfg.act_approx == "cuda"))
         return quant.qt_einsum(eq, x, w)
     return torch.einsum(eq, x, w)
 
@@ -149,10 +160,8 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
         raise NotImplementedError(f"KV-cache attention {_LATER}")
     if cfg.use_rope or cfg.qk_norm or cfg.sliding_window:
         raise NotImplementedError(f"RoPE / qk-norm / sliding window {_LATER}")
-    if cfg.attn_impl != "xla":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}: the flash-LUT attention kernel is "
-            "still to be ported")
+    if cfg.attn_impl not in ("xla", "flash_lut"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     b, sq, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     wq, wk, wv = p["wq"], p["wk"], p["wv"]
@@ -178,7 +187,24 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
     q = q.reshape(b, sq, h, dh)
     k = k.reshape(b, sq, kv, dh)
     v = v.reshape(b, sq, kv, dh)
-    out = sdpa(q, k, v, cfg, causal=causal)
+    if cfg.attn_impl == "flash_lut":
+        # flash-LUT attention: online softmax with the paper's LUT exp, in
+        # the [B, H, L, D] layout.  The cuda plan launches the kernel
+        # (kernels.ops); every other plan takes its plain version, so a
+        # launch counter counts the cuda plan only.  (The reference sends
+        # cached and windowed layouts to sdpa instead; this slice has
+        # neither.)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        if cfg.act_approx == "cuda":
+            from repro_torch.kernels import ops
+            out = ops.lut_attention(qh, kh, vh, causal=causal)
+        else:
+            from repro_torch.kernels import ref
+            out = ref.lut_attention(qh, kh, vh, causal=causal,
+                                    softmax_mode="lut")
+        out = out.transpose(1, 2)
+    else:
+        out = sdpa(q, k, v, cfg, causal=causal)
     out = linear(out.reshape(b, sq, h * dh), p["wo"], "bsf,fd->bsd", cfg)
     if "bo" in p:
         out = out + p["bo"]

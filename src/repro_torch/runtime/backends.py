@@ -19,7 +19,8 @@ class Backend:
     ``quantize``: apply the QuantRecipe PTQ to params by default.
     ``uses_lut``: the 2.69 kB ROM bank is live (Engine.lut_bytes > 0).
     ``uses_kernels``: softmax, GELU and every integer linear execute as
-    hand-written CUDA kernels; such a plan needs a CUDA device.
+    hand-written CUDA kernels, and so does the attention under
+    ``attention="flash_lut"``; such a plan needs a CUDA device.
     ``int_resident``: the Engine keeps the quantised weights in their
     stored integer form (int8 / nibble-packed int4 QTensors) rather than
     a plan-time dequantised float copy.
@@ -39,19 +40,17 @@ class Backend:
     uses_kernels: bool = False
     int_resident: bool = False
     int_exec: bool = False
-    attention: str = "xla"         # the plain einsum attention
+    attention: str = "xla"         # xla | flash_lut (kernels.lut_attention)
 
     def configure(self, cfg, *, attention: str | None = None):
         """Pin this backend's execution modes onto a ModelConfig.  The ONLY
-        place that mutates softmax_mode / act_approx / attn_impl."""
+        place that mutates softmax_mode / act_approx / attn_impl.
+        ``attention`` overrides the backend's registered attention
+        realisation (the ``compile_model(attention=...)`` knob)."""
         attn = self.attention if attention is None else attention
-        if attn == "flash_lut":
-            raise NotImplementedError(
-                "attention='flash_lut': the flash-LUT attention kernel is "
-                "still to be ported (it serves the LM families)")
-        if attn != "xla":
+        if attn not in ("xla", "flash_lut"):
             raise ValueError(f"unknown attention impl {attn!r}; "
-                             "available: xla")
+                             "available: xla, flash_lut")
         return cfg.with_(softmax_mode=self.softmax_mode,
                          act_approx=self.act_approx, attn_impl=attn)
 

@@ -8,6 +8,7 @@ ONCE, places the parameters on the device, and returns an ``Engine``:
 
     eng = runtime.compile_model(cfg, params, backend="cuda")
     logits = eng.forward(mfcc)            # offline [B, F, T] -> [B, C]
+    state, logits = eng.stream_step(state, chunk, fcfg)   # one hop
     emb    = eng.embed_frames(frames)     # streaming building blocks
     logits = eng.encode_window(window)
 
@@ -119,7 +120,16 @@ class Engine:
                                            self._input(window), self.exec_cfg)
 
     def stream_step(self, state, chunk, fcfg):
-        _later("Engine.stream_step", "streaming (repro.stream)")
+        """One hop of incremental inference (``stream.engine.stream_step``
+        under this engine's plan): (state, chunk [B, k*hop]) -> (state,
+        logits).  ``state`` comes from ``stream.engine.init_stream_state``
+        on this engine's device; ``chunk`` may be numpy or a tensor
+        anywhere and is moved there."""
+        from repro_torch.stream import engine as stream_engine
+        with torch.inference_mode():
+            return stream_engine.stream_step(
+                self.live_params(), state, self._input(chunk), self.exec_cfg,
+                fcfg)
 
     def init_decode_state(self, batch: int, max_len: int):
         _later("Engine.init_decode_state", "LM-families")
@@ -170,9 +180,12 @@ class Engine:
             (" int-exec" if self.int_exec else
              " resident" if self.int_resident else "")
         kern = ", kernels=cuda" if self.backend.uses_kernels else ""
+        attn = "" if self.exec_cfg.attn_impl == "xla" else \
+            f", attn={self.exec_cfg.attn_impl}"
         return (f"Engine[{self.backend.name}] {self.exec_cfg.name} on "
                 f"{self.device}: params {self.param_bytes} B, "
-                f"rom {self.rom_bytes} B, lut {self.lut_bytes} B{q}{kern}")
+                f"rom {self.rom_bytes} B, lut {self.lut_bytes} B{q}{kern}"
+                f"{attn}")
 
 
 def _has_qtensors(tree) -> bool:

@@ -290,6 +290,8 @@ def test_launch_counters_stay_zero_on_cpu():
     tops.lut_gelu(torch.zeros(3, 5))
     tops.int8_matmul_raw(torch.zeros((3, 5), dtype=torch.int8),
                          torch.zeros((5, 2), dtype=torch.int8))
+    tops.lut_attention(torch.zeros(1, 1, 3, 4), torch.zeros(1, 1, 3, 4),
+                       torch.zeros(1, 1, 3, 4))
     assert tops.launch_counts() == {"lut_softmax": 0, "lut_gelu": 0,
-                                    "int8_matmul": 0}
+                                    "int8_matmul": 0, "lut_attention": 0}
     assert jax.default_backend() == "cpu"

@@ -122,7 +122,8 @@ def test_convert_carries_a_reference_quantised_tree(bits, per_channel):
                                    jq["proj_w"].exponent,
                                    None if jq["proj_w"].axis_exponents is None
                                    else np.asarray(jq["proj_w"].axis_exponents),
-                                   bits, jq["proj_w"].logical_shape)
+                                   bits, jq["proj_w"].logical_shape,
+                                   device="cpu")
     assert np.array_equal(q.int_values().numpy(),
                           np.asarray(jq["proj_w"].int_values()))
 

@@ -332,6 +332,20 @@ def test_no_device_means_the_card_and_raises_without_one():
             trt.compile_model(tcfg, tp, backend="cuda")
 
 
+def test_convert_without_a_device_means_the_card():
+    npp = {"w": np.ones((2, 3), np.float32)}
+    parts = dict(values=np.ones((2, 3), np.int8), exponent=6)
+    if torch.cuda.is_available():
+        assert convert.from_numpy_tree(npp)["w"].device.type == "cuda"
+        assert convert.qtensor_from_numpy(**parts).values.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            convert.from_numpy_tree(npp)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            convert.qtensor_from_numpy(**parts)
+    assert convert.from_numpy_tree(npp, "cpu")["w"].device.type == "cpu"
+
+
 def test_compile_model_turns_tf32_off():
     _, tcfg, _, tp = _setup("kwt-tiny")
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -341,21 +355,15 @@ def test_compile_model_turns_tf32_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-@pytest.mark.parametrize("call", ["stream_step", "prefill", "decode_step",
-                                  "flash_lut", "taps"])
+@pytest.mark.parametrize("call", ["prefill", "decode_step", "taps"])
 def test_later_slices_raise_not_implemented(call):
     _, tcfg, _, tp = _setup("kwt-tiny")
     eng = trt.compile_model(tcfg, tp, backend="float", device="cpu")
     with pytest.raises(NotImplementedError):
-        if call == "stream_step":
-            eng.stream_step(None, None, None)
-        elif call == "prefill":
+        if call == "prefill":
             eng.prefill(None, None)
         elif call == "decode_step":
             eng.decode_step(None, None)
-        elif call == "flash_lut":
-            trt.compile_model(tcfg, tp, backend="lut", attention="flash_lut",
-                              device="cpu")
         else:
             trt.compile_model(tcfg, tp, backend="lut", taps=True, device="cpu")
 
