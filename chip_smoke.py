@@ -14,8 +14,12 @@ quickest proof that the port still builds and starts there:
                        and matmul are exact by construction), at the
                        main-path shapes of both
                        KWT models for batch 1 / 8 / 64 / 4096 (KWT-1's
-                       matmuls also with int4 per-channel weights) and at
-                       ragged shapes; times each beside its plain version, one
+                       matmuls also with int4 per-channel weights), at
+                       ragged shapes and at the edges of the softmax's slab
+                       path and the GELU's 16-byte vectors (short and
+                       ragged slabs, rows packed several to a warp, the
+                       slab limit, misaligned views, lengths off the vector
+                       width); times each beside its plain version, one
                        PyTorch library call and its memory/compute bound.
    ``lut_attention`` cannot be ``torch.equal``: the kernel's own order of
    the dot over D moves an occasional score across a 1/32 LUT bin.  In
@@ -57,11 +61,16 @@ last is ``{"kernels": [...]}`` with, per kernel, its launches on the main
 paths, its error against the plain version and its times; the last line
 is ``{"ok": true, "device": {...}}``.
 
-Timing: CUDA events around a run of back-to-back calls of the wrapper,
-median over several runs, after a warm-up; inputs stay resident (the L2
-cache is not flushed: on the main path a kernel's input was just written
-by the op before it).  At the smallest shapes the figure is the cost of
-one launch from Python, not of the arithmetic.
+Timing, two figures per call: ``ms``, CUDA events around a run of
+back-to-back calls of the wrapper (at the smallest shapes the cost of one
+call from Python, not of the arithmetic), and ``device_ms``, the same run
+of calls captured once in a CUDA graph and its replays timed with events
+(the device's time alone; the capture calls the wrappers, so the launch
+counters rise then, before they are reset for the main paths, and not at
+replay).  The library call gets both (``library_ms``,
+``library_device_ms``).  Median over several runs, after a warm-up;
+inputs stay resident (the L2 cache is not flushed: on the main path a
+kernel's input was just written by the op before it).
 
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over the peak for their type
@@ -99,8 +108,10 @@ from repro_torch.stream import features  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
-# arithmetic per element, counted from the kernel sources (two passes of
-# the exp lookup, the limb multiply, the max and the sum for the softmax)
+# arithmetic per element, counted from the first kernel sources (two
+# passes of the exp lookup, the limb multiply, the max and the sum for the
+# softmax); the slab softmax looks each exp up once, but the count is kept
+# so that every bound stays comparable with the earlier ones
 SOFTMAX_OPS_PER_ELEM = {True: 40, False: 20}      # fixed, float
 GELU_OPS_PER_ELEM = {False: 8, True: 14}          # nearest, interp
 
@@ -164,6 +175,42 @@ def time_ms(fn, numel_hint: int) -> float:
         stop.synchronize()
         runs.append(start.elapsed_time(stop) / per_run)
     return statistics.median(runs)
+
+
+def device_ms(fn, numel_hint: int) -> float:
+    """Median milliseconds of one call on the device alone: a run of calls
+    captured in a CUDA graph, the replays timed with events.  The wrappers
+    launch on the current stream, which under capture is the capturing
+    one."""
+    per_run = 20 if numel_hint < (1 << 22) else 4
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_run):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        runs.append(start.elapsed_time(stop) / per_run)
+    graph.reset()
+    return statistics.median(runs)
+
+
+def timings(fn, plain, library, numel_hint: int) -> dict:
+    """The wrapper's, the plain version's and the library call's times."""
+    return {"ms": time_ms(fn, numel_hint),
+            "device_ms": device_ms(fn, numel_hint),
+            "plain_ms": time_ms(plain, numel_hint),
+            "library_ms": time_ms(library, numel_hint),
+            "library_device_ms": device_ms(library, numel_hint)}
 
 
 def bound(nbytes: int, nops: float, ops_per_s: float):
@@ -246,28 +293,42 @@ def model_shapes(cfg, b: int) -> dict:
                        ("w2", b * s, ff, d), ("head", b, d, cfg.n_classes)]}
 
 
-def check_softmax(dev, gen, m, n, fixed, timed):
-    x = torch.randn((m, n), generator=gen, device=dev) * 4.0
+def check_softmax(dev, gen, m, n, fixed, timed, offset=0):
+    """``offset`` > 0: ``x`` is a contiguous view that starts ``offset``
+    floats into a buffer, so not on a 16-byte boundary."""
+    buf = torch.randn((m * n + offset,), generator=gen, device=dev) * 4.0
+    x = buf[offset:].view(m, n)
+    if offset and x.data_ptr() % 16 == 0:
+        raise AssertionError(f"offset {offset}: the view is 16-byte aligned")
     if m > 2 and n > 1:
         x[0] = 0.0                                      # flat row, largest sum
         x[1, 0] = 60.0                                  # one dominant lane
     got, want = ops.lut_softmax(x, fixed=fixed), ref.lut_softmax(x, fixed=fixed)
     row = {"variant": "fixed" if fixed else "float", "shape": [m, n],
+           "slab_rows": slab_rows(n, x.data_ptr() % 16 == 0),
            "equal": True, "max_abs_err": require_equal(
-               f"lut_softmax fixed={fixed} {m}x{n}", got, want)}
+               f"lut_softmax fixed={fixed} {m}x{n} offset {offset}", got, want)}
+    if offset:
+        row["offset"] = offset
     del got, want
     if timed:
         nbytes = 2 * 4 * m * n + 2 * 4 * 320
         b_ms, by = bound(nbytes, SOFTMAX_OPS_PER_ELEM[fixed] * m * n, F32_OPS_PER_S)
-        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by,
-                   ms=time_ms(lambda: ops.lut_softmax(x, fixed=fixed), m * n),
-                   plain_ms=time_ms(lambda: ref.lut_softmax(x, fixed=fixed), m * n),
-                   library_ms=time_ms(lambda: torch.softmax(x, dim=-1), m * n))
+        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
+            lambda: ops.lut_softmax(x, fixed=fixed),
+            lambda: ref.lut_softmax(x, fixed=fixed),
+            lambda: torch.softmax(x, dim=-1), m * n))
     return row
 
 
-def check_gelu(dev, gen, shape, interp, dtype, timed):
-    x = (torch.randn(shape, generator=gen, device=dev) * 3.0).to(dtype)
+def check_gelu(dev, gen, shape, interp, dtype, timed, offset=0):
+    """``offset`` > 0: ``x`` is a contiguous view that starts ``offset``
+    elements into a buffer, so not on a 16-byte boundary."""
+    numel = int(np.prod(shape))
+    buf = (torch.randn((numel + offset,), generator=gen, device=dev) * 3.0).to(dtype)
+    x = buf[offset:].view(shape)
+    if offset and x.data_ptr() % 16 == 0:
+        raise AssertionError(f"offset {offset}: the view is 16-byte aligned")
     flat = x.reshape(-1)
     edges = torch.tensor([-1.857, 1.595, -1.8570001, 1.5950001, 0.0, -10.0, 10.0],
                          device=dev).to(dtype)
@@ -276,17 +337,18 @@ def check_gelu(dev, gen, shape, interp, dtype, timed):
     name = str(dtype).split(".")[1]
     row = {"variant": "interp" if interp else "nearest", "dtype": name,
            "shape": list(shape), "equal": True, "max_abs_err": require_equal(
-               f"lut_gelu interp={interp} {name} {shape}", got, want)}
+               f"lut_gelu interp={interp} {name} {shape} offset {offset}",
+               got, want)}
+    if offset:
+        row["offset"] = offset
     del got, want
     if timed:
-        numel = x.numel()
         nbytes = 2 * x.element_size() * numel + 4 * 32
         b_ms, by = bound(nbytes, GELU_OPS_PER_ELEM[interp] * numel, F32_OPS_PER_S)
-        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by,
-                   ms=time_ms(lambda: ops.lut_gelu(x, interp=interp), numel),
-                   plain_ms=time_ms(lambda: ref.lut_gelu(x, interp=interp), numel),
-                   library_ms=time_ms(
-                       lambda: torch.nn.functional.gelu(x), numel))
+        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
+            lambda: ops.lut_gelu(x, interp=interp),
+            lambda: ref.lut_gelu(x, interp=interp),
+            lambda: torch.nn.functional.gelu(x), numel))
     return row
 
 
@@ -318,13 +380,12 @@ def check_matmul(dev, gen, tag, m, k, n, *, bits=8, per_channel=False,
         nbytes = m * k + k * n + 4 * m * n + (4 * n if per_channel else 0)
         b_ms, by = bound(nbytes, 2.0 * m * k * n, INT8_OPS_PER_S)
         xf, wf = x.to(torch.float32), grid.to(torch.float32)
-        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by,
-                   ms=time_ms(lambda: ops.int8_matmul(
-                       x, w, x_exp=5, residual_bits=residual_bits), m * max(k, n)),
-                   plain_ms=time_ms(lambda: ref.int8_matmul_scaled(
-                       x, grid, shift=0, clip16=residual_bits == 16, out_exp=11,
-                       axis_exponents=axis), m * max(k, n)),
-                   library_ms=time_ms(lambda: torch.matmul(xf, wf), m * max(k, n)))
+        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
+            lambda: ops.int8_matmul(x, w, x_exp=5, residual_bits=residual_bits),
+            lambda: ref.int8_matmul_scaled(
+                x, grid, shift=0, clip16=residual_bits == 16, out_exp=11,
+                axis_exponents=axis),
+            lambda: torch.matmul(xf, wf), m * max(k, n)))
     return row
 
 
@@ -389,14 +450,68 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
         b_ms, by = bound(nbytes, 4.0 * b * hq * lq * lk * d, F32_OPS_PER_S)
         numel = b * hq * lq * lk
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by,
-                   ms=time_ms(lambda: ops.lut_attention(
-                       q, k, v, causal=causal, use_lut=use_lut), numel),
-                   plain_ms=time_ms(lambda: ref.lut_attention(
-                       q, k, v, causal=causal, softmax_mode=mode), numel),
-                   library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal),
-                                      numel))
+        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
+            lambda: ops.lut_attention(q, k, v, causal=causal, use_lut=use_lut),
+            lambda: ref.lut_attention(q, k, v, causal=causal,
+                                      softmax_mode=mode),
+            lambda: sdpa(q, k, v, is_causal=causal), numel))
     return row
+
+
+def slab_rows(n: int, aligned: bool) -> int:
+    """The softmax launcher's rows per slab for rows of ``n`` floats at a
+    16-byte aligned base or not, 0 for its global path."""
+    return build.load().lut_softmax_slab_rows(n, int(aligned))
+
+
+def max_slab_n() -> int:
+    """The longest row the softmax's slab path takes."""
+    n = 1
+    while slab_rows(n + 1, True):
+        n += 1
+    return n
+
+
+def softmax_edge_shapes() -> list:
+    """(m, n, offset): the first ragged list, then for each row length the
+    slab path's edges at its rows per slab R — one row, M < R, M = R, a
+    short last slab either side of 3 R, and 40000 R + 1 (every warp walks
+    several slabs, round its ring of stages more than once); rows of
+    <= 16 floats, several to a warp; the slab limit and one
+    above it (the global path); views that start off a 16-byte boundary
+    (the global path)."""
+    shapes = [(m, n, 0) for m, n in ((1000, 1000), (7, 1), (1, 1), (5, 4099),
+                                     (33, 65), (3, 16384))]
+    limit = max_slab_n()
+    for n in (1, 3, 8, 13, 16, 17, 27, 64, 99, limit):
+        r = slab_rows(n, True)
+        shapes += [(m, n, 0) for m in (1, r - 1, r, 3 * r - 1, 3 * r + 1,
+                                       40000 * r + 1)]
+    n = limit + 1
+    shapes += [(4, n, 0), (9, n, 0), (40001, n, 0)]
+    shapes += [(81, 99, 1), (300, 13, 2), (9, limit, 3),
+               (1000, 27, 1)]
+    return shapes
+
+
+def gelu_edge_shapes() -> list:
+    """(shape, dtype, offset): the first ragged list in both dtypes, then
+    lengths that leave 1, 3 and 7 elements past the last whole vector
+    (4 f32 or 8 bf16 a vector), among them arrays shorter than a vector
+    and a bf16 array of many thousand blocks, and views that start off a
+    16-byte boundary, among them views that end before the next boundary
+    (all head, no whole vector)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [(s, d, 0) for s in ((3, 5), (1,), (257, 33), (1000003,))
+              for d in (f32, bf16)]
+    shapes += [((n,), f32, 0) for n in (3, 4097, 4099, 65543)]
+    shapes += [((n,), bf16, 0) for n in (7, 8193, 8195, 8199, 8650759)]
+    shapes += [((4099,), f32, o) for o in (1, 2, 3)]
+    shapes += [((12345,), bf16, o) for o in (1, 3, 7)]
+    shapes += [((3,), bf16, 5), ((37, 11), f32, 2)]
+    shapes += [((2,), f32, 1), ((1,), f32, 3), ((2,), f32, 2),
+               ((3,), bf16, 1), ((6,), bf16, 1), ((1,), bf16, 7)]
+    return shapes
 
 
 # the reference's sweep (tests/test_kernels.py): MHA, GQA, MQA, decode and
@@ -436,16 +551,16 @@ def phase_kernels(dev, configs) -> dict:
                                      per_channel=True, timed=True)
                     rows["int8_matmul"].append(
                         {"model": cfg.name, "batch": b, **r})
-    # ragged shapes and the options the main path does not take
-    ragged_sm = [(1000, 1000), (7, 1), (1, 1), (5, 4099), (33, 65), (3, 16384)]
-    for m, n in ragged_sm:
+    # ragged shapes, the edges of the softmax's slab path and of the GELU's
+    # vectors, and the options the main path does not take
+    for m, n, offset in softmax_edge_shapes():
         for fixed in (True, False):
-            rows["lut_softmax"].append(check_softmax(dev, gen, m, n, fixed, False))
-    for shape in [(3, 5), (1,), (257, 33), (1000003,)]:
+            rows["lut_softmax"].append(
+                check_softmax(dev, gen, m, n, fixed, False, offset))
+    for shape, dtype, offset in gelu_edge_shapes():
         for interp in (False, True):
-            for dtype in (torch.float32, torch.bfloat16):
-                rows["lut_gelu"].append(
-                    check_gelu(dev, gen, shape, interp, dtype, False))
+            rows["lut_gelu"].append(
+                check_gelu(dev, gen, shape, interp, dtype, False, offset))
     for m, k, n in [(33, 17, 5), (257, 256, 35), (1, 1, 1), (64, 300, 129)]:
         for bits, pc in ((8, False), (8, True), (4, False), (4, True)):
             for rb in (16, 32):
@@ -749,7 +864,8 @@ SOURCES = {
     "lut_attention": ("src/repro_torch/csrc/lut_attention.cu",
                       "src/repro/kernels/lut_attention.py:98"),
 }
-TIMED_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes")
+TIMED_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "library_device_ms", "bytes")
 
 
 def _variants(rows: list, model: str, batch: int, tag) -> list:
@@ -795,9 +911,11 @@ def kernels_line(rows: dict, launches: dict, headline_model: str,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"],
             "shape": head.get("shape", head.get("shape_mkn",
                                                 head.get("shape_bhhlld"))),
             "model": headline_model, "batch": headline_batch,

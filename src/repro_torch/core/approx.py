@@ -43,8 +43,11 @@ def softmax_exact(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
 
 def pre_shift_bits(k_len: int) -> int:
     """Bits the Q8.24 numerators are shifted down by before the row sum,
-    so that a sum over ``k_len`` lanes stays inside int32."""
-    return max(0, int(np.ceil(np.log2(max(k_len, 1)))) - 6)
+    so that a sum over ``k_len`` lanes stays inside int32:
+    ``ceil(log2(k_len)) - 6``, at least 0, in integer arithmetic (the
+    reference's float ``np.ceil(np.log2(n))`` gives the same for every
+    ``n >= 1``)."""
+    return max(0, (max(k_len, 1) - 1).bit_length() - 6)
 
 
 def _pre_shift(num_q: torch.Tensor, pre: int) -> torch.Tensor:

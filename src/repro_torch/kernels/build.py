@@ -29,16 +29,18 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> argument types (every pointer and the stream are c_void_p:
 # ctypes would otherwise pass a Python int as a 32-bit int and cut it)
 SIGNATURES = {
-    # x, exp_tab, inv_tab, out, m, n, pre, stream
-    "lut_softmax_fixed_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, exp_tab, inv_tab, out, m, n, stream
+    "lut_softmax_fixed_launch": (_P, _P, _P, _P, _I, _I, _P),
     # x, exp_tab, out, m, n, stream
     "lut_softmax_float_launch": (_P, _P, _P, _I, _I, _P),
-    # x, tab, out, numel, interp, is_bf16, lo, hi, scale, stream
-    "lut_gelu_launch": (_P, _P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _P),
+    # n, aligned -> rows per slab, 0 for the global path (a report)
+    "lut_softmax_slab_rows": (_I, _I),
+    # x, tab, out, numel, mode (2 * bf16 + interp), stream
+    "lut_gelu_launch": (_P, _P, _P, _L, _I, _P),
     # x, w, out, col_scale, m, k, n, shift, clip16, out_mode, scale, stream
     "int8_matmul_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, exp_tab, out, b, hq, hkv, lq, lk, d, block_k, causal, use_lut,

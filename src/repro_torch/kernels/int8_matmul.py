@@ -7,8 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
-from repro_torch.kernels._launch import require_cuda, stream_of
+from repro_torch.kernels import _launch, ref
 
 launches = 0   # kernel launches made by this wrapper (all output modes)
 
@@ -21,9 +20,8 @@ def _check(x_int, w_int):
                          f"{tuple(x_int.shape)} @ {tuple(w_int.shape)}")
 
 
-def _launch(x_int, w_int, *, shift, clip16, out_mode, scale, col_scale):
+def _run(x_int, w_int, *, shift, clip16, out_mode, scale, col_scale):
     global launches
-    require_cuda(x_int, "int8_matmul")
     if x_int.dtype != torch.int8 or w_int.dtype != torch.int8:
         raise TypeError("int8_matmul kernel takes int8 operands, got "
                         f"{x_int.dtype} @ {w_int.dtype}")
@@ -42,13 +40,11 @@ def _launch(x_int, w_int, *, shift, clip16, out_mode, scale, col_scale):
         return out.zero_()
     if col_scale is not None:
         col_scale = col_scale.to(torch.float32).contiguous()
-    lib = build.load()
-    with torch.cuda.device(x_int.device):
-        code = lib.int8_matmul_launch(
-            x_int.data_ptr(), w_int.data_ptr(), out.data_ptr(),
-            None if col_scale is None else col_scale.data_ptr(),
-            m, k, n, shift, int(clip16), out_mode, scale, stream_of(x_int))
-    build.check(code, "int8_matmul")
+    st = _launch.state(x_int.get_device())
+    _launch.launch(st, st.lib.int8_matmul_launch, "int8_matmul",
+                   x_int.data_ptr(), w_int.data_ptr(), out.data_ptr(),
+                   None if col_scale is None else col_scale.data_ptr(),
+                   m, k, n, shift, int(clip16), out_mode, scale)
     launches += 1
     return out
 
@@ -57,12 +53,12 @@ def int8_matmul_raw(x_int: torch.Tensor, w_int: torch.Tensor, *,
                     shift: int = 0, out_int16: bool = False) -> torch.Tensor:
     """[M,K] i8 @ [K,N] i8 -> int32 (or clipped int16) with ``>> shift``."""
     _check(x_int, w_int)
-    if x_int.device.type == "cpu":
+    if not _launch.on_cuda(x_int, "int8_matmul"):
         return ref.int8_matmul_raw(x_int, w_int, shift=shift,
                                    out_int16=out_int16)
-    return _launch(x_int, w_int, shift=shift, clip16=out_int16,
-                   out_mode=_I16 if out_int16 else _I32, scale=1.0,
-                   col_scale=None)
+    return _run(x_int, w_int, shift=shift, clip16=out_int16,
+                out_mode=_I16 if out_int16 else _I32, scale=1.0,
+                col_scale=None)
 
 
 def int8_matmul_scaled(x_int: torch.Tensor, w_int: torch.Tensor, *,
@@ -73,11 +69,11 @@ def int8_matmul_scaled(x_int: torch.Tensor, w_int: torch.Tensor, *,
     accumulate, shift, optional INT16 clip, then float32
     ``acc * 2^-out_exp * 2^-axis_exponents[n]``."""
     _check(x_int, w_int)
-    if x_int.device.type == "cpu":
+    if not _launch.on_cuda(x_int, "int8_matmul"):
         return ref.int8_matmul_scaled(x_int, w_int, shift=shift, clip16=clip16,
                                       out_exp=out_exp,
                                       axis_exponents=axis_exponents)
     col = None if axis_exponents is None else \
         torch.exp2(-axis_exponents.to(torch.float32))
-    return _launch(x_int, w_int, shift=shift, clip16=clip16, out_mode=_F32,
-                   scale=2.0 ** (-out_exp), col_scale=col)
+    return _run(x_int, w_int, shift=shift, clip16=clip16, out_mode=_F32,
+                scale=2.0 ** (-out_exp), col_scale=col)

@@ -12,9 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import lut as lutlib
-from repro_torch.kernels import build, ref
-from repro_torch.kernels._launch import require_cuda, stream_of
+from repro_torch.kernels import _launch, ref
 
 launches = 0   # kernel launches made by this wrapper (both modes)
 
@@ -39,10 +37,9 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, Hkv={hkv}")
     if block_k <= 0 or lk % block_k:
         raise ValueError(f"block_k={block_k} does not divide Lk={lk}")
-    if q.device.type == "cpu":
+    if not _launch.on_cuda(q, "lut_attention"):
         return ref.lut_attention(q, k, v, causal=causal, scale=scale,
                                  softmax_mode="lut" if use_lut else "exact")
-    require_cuda(q, "lut_attention")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("lut_attention kernel takes float32 or bfloat16 "
@@ -55,15 +52,12 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    tab = lutlib.bank_tensors(q.device)["exp_f32"]
-    lib = build.load()
-    with torch.cuda.device(q.device):
-        code = lib.lut_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), tab.data_ptr(),
-            out.data_ptr(), b, hq, hkv, lq, lk, d, block_k, int(causal),
-            int(use_lut), int(q.dtype == torch.bfloat16), scale, stream_of(q))
-    build.check(code, f"lut_attention q {tuple(q.shape)} k {tuple(k.shape)} "
-                      f"block_k {block_k} (a refused launch: shared memory "
-                      "grows with D * block_k)")
+    st = _launch.state(q.get_device())
+    _launch.launch(st, st.lib.lut_attention_launch,
+                   "lut_attention (a refused launch: shared memory grows "
+                   "with D * block_k)", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), st.exp_f32, out.data_ptr(), b, hq, hkv, lq,
+                   lk, d, block_k, int(causal), int(use_lut),
+                   int(q.dtype == torch.bfloat16), scale)
     launches += 1
     return out

@@ -1,46 +1,53 @@
 """Piecewise LUT GELU: wrapper of the CUDA kernel ``csrc/lut_gelu.cu``
 (which replaces the reference's Pallas ``lut_gelu_2d``).  Plain version:
-:func:`ref.lut_gelu`."""
+:func:`ref.lut_gelu`.
+
+The kernel moves 16-byte vectors: its launcher cuts the flat array into a
+scalar head up to the first 16-byte boundary, whole vectors and a scalar
+tail.  The output is allocated with the input's offset modulo 16 bytes,
+so that one cut serves both.
+"""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from repro_torch.core import lut as lutlib
-from repro_torch.kernels import build, ref
-from repro_torch.kernels._launch import require_cuda, stream_of
+from repro_torch.kernels import _launch, ref
 
 launches = 0   # kernel launches made by this wrapper
 
-# The reference's constants are Python doubles that meet float32 data as
-# float32 values; round them once on the host and hand them to the kernel.
-_LO = float(np.float32(lutlib.GELU_LO))
-_HI = float(np.float32(lutlib.GELU_HI))
-_SCALE = float(np.float32(float(lutlib.N_GELU_ENTRIES - 1)
-                          / (lutlib.GELU_HI - lutlib.GELU_LO)))
+
+def empty_aligned_like(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised contiguous tensor of ``x``'s shape and dtype whose
+    address has the same remainder modulo 16 bytes as ``x``'s, so that an
+    elementwise kernel can move both in the same 16-byte vectors.  A
+    16-byte aligned ``x`` (every tensor the allocator hands out) gets
+    ``torch.empty_like``; a view that starts inside a vector gets a view
+    into a slightly larger block."""
+    off = (x.data_ptr() % 16) // x.element_size()
+    if off == 0:
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    return buf[off:].view(x.shape)
 
 
 def lut_gelu_flat(x: torch.Tensor, *, interp: bool = False) -> torch.Tensor:
     """LUT GELU over a tensor of any shape (elementwise), float32 or
     bfloat16 in and out."""
-    if x.device.type == "cpu":
+    if not _launch.on_cuda(x, "lut_gelu"):
         return ref.lut_gelu(x, interp=interp)
-    require_cuda(x, "lut_gelu")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16 and x.dtype != torch.float32:
         raise TypeError(f"lut_gelu kernel takes float32 or bfloat16, got {x.dtype}")
     global launches
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    if x.numel() == 0:
+    if not x.is_contiguous():
+        x = x.contiguous()
+    out = empty_aligned_like(x)
+    numel = x.numel()
+    if numel == 0:
         return out
-    tab = lutlib.bank_tensors(x.device)["gelu_f32"]
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        code = lib.lut_gelu_launch(
-            x.data_ptr(), tab.data_ptr(), out.data_ptr(), x.numel(),
-            int(interp), int(x.dtype == torch.bfloat16), _LO, _HI, _SCALE,
-            stream_of(x))
-    build.check(code, "lut_gelu")
+    st = _launch.state(x.get_device())
+    _launch.launch(st, st.lib.lut_gelu_launch, "lut_gelu", x.data_ptr(),
+                   st.gelu_f32, out.data_ptr(), numel, 2 * bf16 + interp)
     launches += 1
     return out

@@ -1,43 +1,46 @@
 """Row softmax via the paper's LUT pipeline: wrapper of the CUDA kernel
 ``csrc/lut_softmax.cu`` (which replaces the reference's Pallas
-``lut_softmax_2d``).  Plain version: :func:`ref.lut_softmax`."""
+``lut_softmax_2d``).  Plain version: :func:`ref.lut_softmax`.
+
+The kernel has two paths, chosen by its launcher from the row length and
+the addresses: a slab path that copies slabs of whole rows into shared
+memory with bulk asynchronous copies, and a global path, one warp per
+row straight from device memory.
+"""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import approx, lut as lutlib
-from repro_torch.kernels import build, ref
-from repro_torch.kernels._launch import require_cuda, stream_of
+from repro_torch.kernels import _launch, ref
 
 launches = 0   # kernel launches made by this wrapper (both variants)
 
 
-def lut_softmax_2d(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
-    """LUT softmax along the last axis of a [M, N] tensor -> float32."""
-    if x.ndim != 2:
-        raise ValueError(f"lut_softmax_2d takes [M, N], got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+def lut_softmax_rows(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
+    """LUT softmax along the last axis of a tensor of any rank -> float32:
+    its rows are the M = numel / N runs of N = ``x.shape[-1]`` floats of
+    the contiguous layout, so nothing is reshaped."""
+    if x.ndim == 0:
+        raise ValueError("lut_softmax takes a tensor of rank 1 or more")
+    if not _launch.on_cuda(x, "lut_softmax"):
         return ref.lut_softmax(x, fixed=fixed)
-    require_cuda(x, "lut_softmax")
     global launches
-    x = x.to(torch.float32).contiguous()
-    m, n = x.shape
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    if not x.is_contiguous():
+        x = x.contiguous()
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    numel, n = x.numel(), x.size(-1)
+    if numel == 0:
         return out
-    tabs = lutlib.bank_tensors(x.device)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        if fixed:
-            code = lib.lut_softmax_fixed_launch(
-                x.data_ptr(), tabs["exp_q24"].data_ptr(),
-                tabs["inv_q24"].data_ptr(), out.data_ptr(), m, n,
-                approx.pre_shift_bits(n), stream_of(x))
-        else:
-            code = lib.lut_softmax_float_launch(
-                x.data_ptr(), tabs["exp_f32"].data_ptr(), out.data_ptr(),
-                m, n, stream_of(x))
-    build.check(code, "lut_softmax")
+    st = _launch.state(x.get_device())
+    if fixed:
+        _launch.launch(st, st.lib.lut_softmax_fixed_launch, "lut_softmax",
+                       x.data_ptr(), st.exp_q24, st.inv_q24, out.data_ptr(),
+                       numel // n, n)
+    else:
+        _launch.launch(st, st.lib.lut_softmax_float_launch, "lut_softmax",
+                       x.data_ptr(), st.exp_f32, out.data_ptr(), numel // n, n)
     launches += 1
     return out

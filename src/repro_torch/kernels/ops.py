@@ -57,9 +57,7 @@ def lut_gelu(x: torch.Tensor, *, interp: bool = False) -> torch.Tensor:
 
 def lut_softmax(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
     """LUT softmax along the last axis of any-shaped input."""
-    shape = x.shape
-    out = _sm.lut_softmax_2d(x.reshape(-1, shape[-1]), fixed=fixed)
-    return out.reshape(shape)
+    return _sm.lut_softmax_rows(x, fixed=fixed)
 
 
 def int8_matmul(x_int, w_int, *, x_exp: int | None = None,
