@@ -21,6 +21,13 @@ quickest proof that the port still builds and starts there:
                        slab limit, misaligned views, lengths off the vector
                        width); times each beside its plain version, one
                        PyTorch library call and its memory/compute bound.
+   The matmul takes the float activation (quantised by eq 9 in the
+   kernel; the input of the cuda plans) and the int8 one, int8 and
+   nibble-packed int4 weights (unpacked in the kernel), per-column
+   exponents over -8..8, activations on exact .5 ties and beyond the clip
+   edges, int4 payloads of odd K * N; beside its time ``torch._int_mm``
+   (the same int8 product; where it refuses a shape, its error) and f32
+   ``torch.matmul``, the faster of them as ``library_ms``.
    ``lut_attention`` cannot be ``torch.equal``: the kernel's own order of
    the dot over D moves an occasional score across a 1/32 LUT bin.  In
    its LUT mode it is held to its plain version (``ref.lut_attention``,
@@ -31,8 +38,12 @@ quickest proof that the port still builds and starts there:
    to both at 2e-5 (at the KWT shapes, where some rows spread wider than
    the kernel's clip of ``m - s`` at 10, to the tiled version, which has
    the clip).  At the KWT shapes, the reference's
-   sweep shapes (causal and not, several key tiles included) and ragged
-   shapes; bf16 must come out finite.
+   sweep shapes (causal and not, several key tiles included), ragged
+   shapes and key tiles of 8, 27 and 99 keys against depths of 8, 64 and
+   72, each also on strided views in the layer's ``[B, L, H, D]`` layout
+   (the output laid out so that the layer's reshape is a view); bf16 must
+   come out finite.  Its row carries the bytes bound beside the float32
+   operations bound.
 4. ``serve_kwt_tiny``  KWT-Tiny (full width and depth) under the ``cuda``
 5. ``serve_kwt_1``     backend, then KWT-1 (12 layers, d 64): request
                        batches through ``Engine.forward``, under
@@ -41,7 +52,9 @@ quickest proof that the port still builds and starts there:
                        (logits within ``FLASH_*`` of ``lut`` +
                        ``flash_lut`` on the card); close to the same plan
                        on the CPU; the launch counters of the four
-                       wrappers rise by exactly the expected numbers.
+                       wrappers rise by exactly the expected numbers;
+                       each plan's line holds its launches and its ATen
+                       ops per forward.
 6. ``stream_kwt_tiny`` the always-on stream through ``Engine.stream_step``
 7. ``stream_kwt_1``    under ``cuda`` + ``xla`` and ``cuda`` + ``flash_lut``:
                        numpy-seeded audio for 64 lanes in chunks of 1, 2
@@ -357,35 +370,100 @@ def _rand_i8(gen, shape, dev, lo=-128, hi=128):
                          dtype=torch.int32).to(torch.int8)
 
 
-def check_matmul(dev, gen, tag, m, k, n, *, bits=8, per_channel=False,
-                 residual_bits=16, timed=False):
-    """The f32-epilogue mode through the public wrapper, QTensor weight."""
+def matmul_activations(gen, m, k, dev, bits=8):
+    """Float activations for the fused eq-9 quantiser: normal values, and
+    in front the quantiser's edges — exact .5 ties (``x * 2^5 + 0.5`` an
+    integer), values just inside and beyond the clip edges, and far
+    beyond them."""
+    x = torch.randn((m, k), generator=gen, device=dev) * 2.0
     lo, hi = quant.int_range(bits)
-    x = _rand_i8(gen, (m, k), dev)
+    s = 2.0 ** 5
+    edges = torch.tensor([0.5 / s, -0.5 / s, 1.5 / s, -1.5 / s, (hi + 0.5) / s,
+                          (lo - 0.5) / s, (hi - 0.5) / s, (lo + 0.5) / s,
+                          (hi + 1) / s, (lo - 1) / s, 1e6, -1e6], device=dev)
+    flat = x.view(-1)
+    flat[:min(edges.numel(), flat.numel())] = edges[:flat.numel()]
+    return x
+
+
+def matmul_library(x_int, grid, numel_hint: int) -> dict:
+    """The library calls beside the matmul: ``torch._int_mm`` (the same
+    int8 x int8 -> int32 product; where it refuses the shape, its error
+    text) and float32 ``torch.matmul`` over the same integer grids;
+    ``library_ms`` / ``library_device_ms`` are the faster of the two on
+    the device, ``library_call`` names it."""
+    out = {}
+    try:
+        torch._int_mm(x_int, grid)
+        torch.cuda.synchronize()
+        out.update(int_mm_ms=time_ms(lambda: torch._int_mm(x_int, grid),
+                                     numel_hint),
+                   int_mm_device_ms=device_ms(
+                       lambda: torch._int_mm(x_int, grid), numel_hint))
+    except RuntimeError as e:
+        out["int_mm_error"] = str(e).splitlines()[0][:200]
+    xf, wf = x_int.to(torch.float32), grid.to(torch.float32)
+    out.update(f32_matmul_ms=time_ms(lambda: torch.matmul(xf, wf), numel_hint),
+               f32_matmul_device_ms=device_ms(lambda: torch.matmul(xf, wf),
+                                              numel_hint))
+    best = "f32_matmul"
+    if "int_mm_device_ms" in out and \
+            out["int_mm_device_ms"] <= out["f32_matmul_device_ms"]:
+        best = "int_mm"
+    out.update(library_call={"int_mm": "torch._int_mm",
+                             "f32_matmul": "torch.matmul (float32)"}[best],
+               library_ms=out[f"{best}_ms"],
+               library_device_ms=out[f"{best}_device_ms"])
+    return out
+
+
+def check_matmul(dev, gen, tag, m, k, n, *, bits=8, per_channel=False,
+                 residual_bits=16, x_float=False, axis_range=(-2, 3),
+                 timed=False):
+    """The f32-epilogue mode through the public wrapper, QTensor weight
+    (an int4 one nibble-packed, unpacked by the kernel), the activation
+    as int8 or (``x_float``) as float32 quantised by the kernel; against
+    the plain version of the same input modes (``quantize_act``, then
+    ``unpack_po2``, then the integer matmul), ``torch.equal``."""
+    lo, hi = quant.int_range(bits)
+    x = matmul_activations(gen, m, k, dev) if x_float else \
+        _rand_i8(gen, (m, k), dev)
     grid = _rand_i8(gen, (k, n), dev, lo, hi + 1)
-    axis = _rand_i8(gen, (n,), dev, -2, 3) if per_channel else None
+    axis = _rand_i8(gen, (n,), dev, *axis_range) if per_channel else None
     w = quant.QTensor.store(grid, 6, bits=bits, axis_exponents=axis)
+    w_shape = w.logical_shape if w.packed else None
     got = ops.int8_matmul(x, w, x_exp=5, residual_bits=residual_bits)
-    want = ref.int8_matmul_scaled(x, grid, shift=0, clip16=residual_bits == 16,
-                                  out_exp=11, axis_exponents=axis)
+
+    def plain():
+        return ref.int8_matmul_io(x, w.values, shift=0,
+                                  clip16=residual_bits == 16, out_exp=11,
+                                  axis_exponents=axis, x_exp=5,
+                                  w_shape=w_shape)
+
+    want = plain()
     row = {"variant": f"f32 int{bits}" + (" per-channel" if per_channel else "")
-           + f" residual{residual_bits}", "tag": tag, "shape_mkn": [m, k, n],
+           + f" residual{residual_bits}" + (" float-x" if x_float else ""),
+           "tag": tag, "shape_mkn": [m, k, n], "input": "float32 x, "
+           "quantised in the kernel" if x_float else "int8 x",
            "equal": True, "max_abs_err": require_equal(
                f"int8_matmul {tag} {(m, k, n)} int{bits} pc={per_channel} "
-               f"rb={residual_bits}", got, want)}
+               f"rb={residual_bits} float_x={x_float}", got, want)}
     if residual_bits == 16 and k >= 8 and not per_channel:
         row["clip_hit"] = bool((want.abs() >= 32767 * 2.0 ** -11).any())
     del got, want
     if timed:
-        nbytes = m * k + k * n + 4 * m * n + (4 * n if per_channel else 0)
+        nbytes = (4 if x_float else 1) * m * k + w.values.numel() \
+            + 4 * m * n + (n if per_channel else 0)
         b_ms, by = bound(nbytes, 2.0 * m * k * n, INT8_OPS_PER_S)
-        xf, wf = x.to(torch.float32), grid.to(torch.float32)
-        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
-            lambda: ops.int8_matmul(x, w, x_exp=5, residual_bits=residual_bits),
-            lambda: ref.int8_matmul_scaled(
-                x, grid, shift=0, clip16=residual_bits == 16, out_exp=11,
-                axis_exponents=axis),
-            lambda: torch.matmul(xf, wf), m * max(k, n)))
+        x_int = quant.quantize_act(x, 5).to(torch.int8) if x_float else x
+        hint = m * max(k, n)
+        row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by,
+                   ms=time_ms(lambda: ops.int8_matmul(
+                       x, w, x_exp=5, residual_bits=residual_bits), hint),
+                   device_ms=device_ms(lambda: ops.int8_matmul(
+                       x, w, x_exp=5, residual_bits=residual_bits), hint),
+                   plain_ms=time_ms(plain, hint),
+                   **matmul_library(x_int, grid, hint))
     return row
 
 
@@ -401,18 +479,30 @@ def check_matmul_raw(dev, gen, m, k, n, shift, out_int16):
 
 
 def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
-                    timed=False, exact_vs_plain=True):
+                    timed=False, exact_vs_plain=True, strided=False):
     """The wrapper against ``ref.lut_attention_tiled`` at the wrapper's
     key tile and against its plain version ``ref.lut_attention``, on the
     same CUDA tensors.  ``shape`` = (b, hq, hkv, lq, lk, d).  The exact
     mode keeps the reference kernel's clip of ``m - s`` at 10, which the
-    plain version lacks: ``exact_vs_plain=False`` where rows spread wider."""
+    plain version lacks: ``exact_vs_plain=False`` where rows spread wider.
+    ``strided``: q, k, v are views of ``[B, L, H, D]`` tensors transposed,
+    as the layer passes them, and the output must be laid out so that the
+    layer's ``transpose(1, 2).reshape(B, L, H * D)`` is a view."""
     b, hq, hkv, lq, lk, d = shape
-    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
-               for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)))
+    if strided:
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   .transpose(1, 2)
+                   for s in ((b, lq, hq, d), (b, lk, hkv, d), (b, lk, hkv, d)))
+    else:
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)))
     mode = "lut" if use_lut else "exact"
     block_k = ops.fit_block(lk, ops.ATTN_BLOCK_K)
     got = ops.lut_attention(q, k, v, causal=causal, use_lut=use_lut)
+    if strided and got.transpose(1, 2).reshape(b, lq, hq * d).data_ptr() \
+            != got.data_ptr():
+        raise AssertionError(f"lut_attention {shape}: the output of strided "
+                             "operands is not laid out [B, L, H, D]")
     want = ref.lut_attention_tiled(q, k, v, causal=causal, use_lut=use_lut,
                                    block_k=block_k)
     plain = ref.lut_attention(q, k, v, causal=causal, softmax_mode=mode)
@@ -438,7 +528,8 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
             raise AssertionError(f"{what}: max abs err {err}, share within "
                                  f"1e-5 {share} (tiled version), max abs err "
                                  f"{plain_err} (plain version)")
-    row = {"variant": mode + (" causal" if causal else ""),
+    row = {"variant": mode + (" causal" if causal else "")
+           + (" strided" if strided else ""),
            "dtype": str(dtype).split(".")[1], "shape_bhhlld": list(shape),
            "block_k": block_k, "equal": False,
            "max_abs_err": err, "within_1e-5": share,
@@ -450,6 +541,9 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
         b_ms, by = bound(nbytes, 4.0 * b * hq * lq * lk * d, F32_OPS_PER_S)
         numel = b * hq * lq * lk
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        # the bytes alone, beside the float32 operations bound kept from
+        # the first slices: what a tensor-core design is held to
+        row.update(bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
         row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
             lambda: ops.lut_attention(q, k, v, causal=causal, use_lut=use_lut),
             lambda: ref.lut_attention(q, k, v, causal=causal,
@@ -521,6 +615,13 @@ ATTN_SWEEP = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 64, 64, 32),
               (1, 2, 2, 64, 256, 32)]
 ATTN_RAGGED = [(3, 2, 1, 27, 27, 8), (1, 2, 2, 30, 1000, 32),
                (2, 2, 1, 27, 27, 72), (1, 4, 2, 40, 20, 16)]
+# key tiles of 8, 27 and 99 keys (fit_block(1000, 128) = 8) against depths
+# of 8, 64 and 72: a partial fragment of keys, one of depth, both, GQA
+ATTN_BK_D = [(2, 2, 1, lq, lk, d) for lq, lk in ((30, 1000), (27, 27),
+                                                 (99, 99))
+             for d in (8, 64, 72)]
+# int4 payloads with an odd K * N (a padded last nibble)
+MATMUL_ODD = [(7, 13, 9), (100, 99, 35), (3, 1, 1), (6272, 40, 63)]
 
 
 def phase_kernels(dev, configs) -> dict:
@@ -543,12 +644,23 @@ def phase_kernels(dev, configs) -> dict:
             for interp in (False, True):
                 r = check_gelu(dev, gen, sh["gelu"], interp, torch.float32, True)
                 rows["lut_gelu"].append({"model": cfg.name, "batch": b, **r})
+            # the layer's strided views, held to the same terms
+            r = check_attention(dev, gen, sh["attention"], False, True,
+                                strided=True)
+            rows["lut_attention"].append({"model": cfg.name, "batch": b, **r})
             for tag, m, k, n in sh["matmul"]:
-                r = check_matmul(dev, gen, tag, m, k, n, timed=True)
-                rows["int8_matmul"].append({"model": cfg.name, "batch": b, **r})
+                # the float activation is what the cuda plans pass (timed
+                # as the main path's); the int8 one is int8_matmul_raw's
+                # and a QTensor activation's input, timed beside it
+                for x_float in (True, False):
+                    r = check_matmul(dev, gen, tag, m, k, n, x_float=x_float,
+                                     timed=True)
+                    rows["int8_matmul"].append(
+                        {"model": cfg.name, "batch": b, **r})
                 if cfg.n_layers > 1:    # the int4 per-channel plan served below
                     r = check_matmul(dev, gen, tag, m, k, n, bits=4,
-                                     per_channel=True, timed=True)
+                                     per_channel=True, x_float=True,
+                                     timed=True)
                     rows["int8_matmul"].append(
                         {"model": cfg.name, "batch": b, **r})
     # ragged shapes, the edges of the softmax's slab path and of the GELU's
@@ -561,12 +673,16 @@ def phase_kernels(dev, configs) -> dict:
         for interp in (False, True):
             rows["lut_gelu"].append(
                 check_gelu(dev, gen, shape, interp, dtype, False, offset))
-    for m, k, n in [(33, 17, 5), (257, 256, 35), (1, 1, 1), (64, 300, 129)]:
+    for m, k, n in [(33, 17, 5), (257, 256, 35), (1, 1, 1),
+                    (64, 300, 129)] + MATMUL_ODD:
         for bits, pc in ((8, False), (8, True), (4, False), (4, True)):
             for rb in (16, 32):
-                rows["int8_matmul"].append(check_matmul(
-                    dev, gen, "ragged", m, k, n, bits=bits, per_channel=pc,
-                    residual_bits=rb))
+                for x_float in (False, True):
+                    # per-channel exponents over -8..8 in both input modes
+                    rows["int8_matmul"].append(check_matmul(
+                        dev, gen, "ragged", m, k, n, bits=bits,
+                        per_channel=pc, residual_bits=rb, x_float=x_float,
+                        axis_range=(-8, 9)))
         for shift, i16 in ((0, False), (5, False), (5, True), (0, True),
                            (-3, False), (-9, True)):
             rows["int8_matmul"].append(
@@ -576,6 +692,11 @@ def phase_kernels(dev, configs) -> dict:
             for use_lut in (True, False):
                 rows["lut_attention"].append(
                     check_attention(dev, gen, shape, causal, use_lut))
+    for shape in ATTN_BK_D:
+        for causal, use_lut in ((True, True), (False, True), (False, False)):
+            for strided in (False, True):
+                rows["lut_attention"].append(check_attention(
+                    dev, gen, shape, causal, use_lut, strided=strided))
     for causal in (True, False):
         rows["lut_attention"].append(check_attention(
             dev, gen, (1, 2, 2, 32, 32, 32), causal, True,
@@ -730,6 +851,8 @@ def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
                             f"max abs {float(diff.max())} (tolerance {tol}), "
                             f"argmax agreement {agree}")
             plan["batches"].append(entry)
+        plan["launches"] = {k: sum(e["launches"][k] for e in plan["batches"])
+                            for k in ops.launch_counts()}
         out["plans"].append(plan)
     emit(out)
     return out
@@ -866,6 +989,11 @@ SOURCES = {
 }
 TIMED_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms", "library_device_ms", "bytes")
+# where a row has them: the attention's bytes bound; the matmul's input
+# mode and both of its library calls (or _int_mm's refusal)
+EXTRA_KEYS = ("bytes_bound_ms", "input", "library_call", "int_mm_ms",
+              "int_mm_device_ms", "int_mm_error", "f32_matmul_ms",
+              "f32_matmul_device_ms")
 
 
 def _variants(rows: list, model: str, batch: int, tag) -> list:
@@ -879,6 +1007,7 @@ def _variants(rows: list, model: str, batch: int, tag) -> list:
         if "ms" in r and r.get("model") == model and r.get("batch") == batch \
                 and r.get("tag") == tag:
             v.update({k: r[k] for k in TIMED_KEYS})
+            v.update({k: r[k] for k in EXTRA_KEYS if k in r})
     return list(out.values())
 
 
@@ -894,7 +1023,9 @@ def kernels_line(rows: dict, launches: dict, headline_model: str,
     ``kernels`` phase line above holds every row."""
     main_variant = {"lut_softmax": lambda r: r["variant"] == "fixed",
                     "lut_gelu": lambda r: r["variant"] == "nearest",
-                    "int8_matmul": lambda r: r.get("tag") == "w1",
+                    # the int8 plans' input: the float activation
+                    "int8_matmul": lambda r: r.get("tag") == "w1"
+                    and r["variant"] == "f32 int8 residual16 float-x",
                     "lut_attention": lambda r: r["variant"] == "lut"}
     entries = []
     for name, (source, replaces) in SOURCES.items():
@@ -916,6 +1047,7 @@ def kernels_line(rows: dict, launches: dict, headline_model: str,
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "library_device_ms": head["library_device_ms"],
+            **{k: head[k] for k in EXTRA_KEYS if k in head},
             "shape": head.get("shape", head.get("shape_mkn",
                                                 head.get("shape_bhhlld"))),
             "model": headline_model, "batch": headline_batch,

@@ -366,24 +366,26 @@ def int_exec_einsum(eq: str, x: torch.Tensor, w: QTensor, *,
     stage, no float weight view — the only float-producing op in the
     plan is the exact po2 :func:`requant` epilogue.
 
-    ``use_kernel`` (the ``cuda`` plan) routes the product, the clip and
-    the epilogue through the hand-written CUDA kernel
-    (``kernels.ops.int8_matmul``); the torch realisation below is that
-    kernel's plain version — same integer accumulation, same int16 clip,
-    same epilogue order, identical bits.
+    ``use_kernel`` (the ``cuda`` plan) routes the quantiser, the product,
+    the clip and the epilogue through the hand-written CUDA kernel
+    (``kernels.ops.int8_matmul``), which takes the float activation and
+    the stored payload as they are; the torch realisation below is that
+    kernel's plain version — same eq-9 roundings, same integer
+    accumulation, same int16 clip, same epilogue order, identical bits.
     """
     lhs, rhs = eq.split("->")[0].split(",")
     transpose_w = rhs[0] != lhs[-1]       # weight-last (tied head) layout
     k = int(x.shape[-1])
-    xq = quantize_act(x, x_exp, bits=x_bits)
     if use_kernel:
         if transpose_w:
             raise NotImplementedError(
                 "the weight-last (tied-head) layout belongs to the LM slice "
                 "of the port; the CUDA int8 matmul takes [K, N] weights")
         from repro_torch.kernels import ops as _kops
-        return _kops.int8_matmul(xq.to(torch.int8), w, x_exp=x_exp,
+        # the float activation goes in as it is: the kernel quantises it
+        return _kops.int8_matmul(x, w, x_exp=x_exp, x_bits=x_bits,
                                  residual_bits=residual_bits)
+    xq = quantize_act(x, x_exp, bits=x_bits)
     acc = _int_grid_matmul(xq, (w,), k, x_bits, transpose_w)
     if residual_bits == 16:
         acc = acc.clamp(INT16_MIN, INT16_MAX)

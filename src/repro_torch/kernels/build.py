@@ -41,12 +41,14 @@ SIGNATURES = {
     "lut_softmax_slab_rows": (_I, _I),
     # x, tab, out, numel, mode (2 * bf16 + interp), stream
     "lut_gelu_launch": (_P, _P, _P, _L, _I, _P),
-    # x, w, out, col_scale, m, k, n, shift, clip16, out_mode, scale, stream
-    "int8_matmul_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # x, w, out, axis, m, k, n, shift, mode (clip16 | out_mode << 1 |
+    # x_f32 << 3 | w_int4 << 4 | x_bits << 8), out_exp, x_exp, stream
+    "int8_matmul_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, exp_tab, out, b, hq, hkv, lq, lk, d, block_k, causal, use_lut,
-    # is_bf16, scale, stream
+    # is_bf16, scale, then the (batch, head, row) strides of q, k, v and out,
+    # stream
     "lut_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _P),
+                             _I, _I, _I, _F) + (_I,) * 12 + (_P,),
 }
 
 _lock = threading.Lock()

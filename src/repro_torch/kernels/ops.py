@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import quant as _q
 from repro_torch.kernels import int8_matmul as _mm
 from repro_torch.kernels import lut_attention as _attn
 from repro_torch.kernels import lut_gelu as _gelu
@@ -62,18 +63,19 @@ def lut_softmax(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
 
 def int8_matmul(x_int, w_int, *, x_exp: int | None = None,
                 w_exp: int | None = None, out_exp: int | None = None,
-                residual_bits: int = 32) -> torch.Tensor:
+                residual_bits: int = 32, x_bits: int = 8) -> torch.Tensor:
     """Quantised matmul -> dequantised f32 (contract matches ref.int8_matmul).
 
     Operands may be raw int tensors (+ explicit exponents) or stored
     ``quant.QTensor``s — int8 or nibble-packed int4 — whose exponents and
     per-channel refinements are read off the container.  ``x_int`` may
-    carry leading batch dims; ``w_int`` is [K, N].  Nibble-packed weights
-    are unpacked by ``QTensor.int_values()`` before the launch.
+    carry leading batch dims (a contiguous one is not copied); ``w_int`` is
+    [K, N].  ``x_int`` may also be the float activation itself: it is
+    quantised by eq 9 (``quant.quantize_act`` with ``x_exp`` and
+    ``x_bits``), on the card inside the kernel.  A nibble-packed weight is
+    unpacked inside the kernel too.
     """
-    from repro_torch.core import quant as _q
-
-    w_axis = None
+    w_axis = w_shape = None
     if isinstance(x_int, _q.QTensor):
         if x_int.axis_exponents is not None:
             # x's axis_exponents scale its LAST axis — the contraction
@@ -86,16 +88,17 @@ def int8_matmul(x_int, w_int, *, x_exp: int | None = None,
     if isinstance(w_int, _q.QTensor):
         w_exp = w_int.exponent if w_exp is None else w_exp
         w_axis = w_int.axis_exponents
-        w_int = w_int.int_values()
+        if w_int.packed:
+            w_shape = w_int.logical_shape
+        w_int = w_int.values if w_int.packed else w_int.int_values()
     if x_exp is None or w_exp is None:
         raise ValueError("raw int operands need explicit x_exp/w_exp")
-    lead, k = x_int.shape[:-1], x_int.shape[-1]
     acc_exp = x_exp + w_exp
     out_exp = acc_exp if out_exp is None else out_exp
-    out = _mm.int8_matmul_scaled(
-        x_int.reshape(-1, k), w_int, shift=acc_exp - out_exp,
-        clip16=(residual_bits == 16), out_exp=out_exp, axis_exponents=w_axis)
-    return out.reshape(*lead, out.shape[-1])
+    return _mm.int8_matmul_scaled(
+        x_int, w_int, shift=acc_exp - out_exp, clip16=residual_bits == 16,
+        out_exp=out_exp, axis_exponents=w_axis, x_exp=x_exp, x_bits=x_bits,
+        w_shape=w_shape)
 
 
 def int8_matmul_raw(x_int: torch.Tensor, w_int: torch.Tensor, *,

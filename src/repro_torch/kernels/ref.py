@@ -65,6 +65,24 @@ def int8_matmul_scaled(x_int: torch.Tensor, w_int: torch.Tensor, *,
     return out
 
 
+def int8_matmul_io(x: torch.Tensor, w: torch.Tensor, *, shift: int,
+                   clip16: bool, out_exp: int,
+                   axis_exponents: torch.Tensor | None = None,
+                   x_exp: int | None = None, x_bits: int = 8,
+                   w_shape: tuple | None = None) -> torch.Tensor:
+    """:func:`int8_matmul_scaled` with the kernel's input modes: a float
+    activation is quantised by eq 9 first (``quant.quantize_act`` with
+    ``x_exp`` and ``x_bits``, in an int8 container), and a nibble-packed
+    int4 weight payload (``w_shape = (K, N)``) unpacked first
+    (``quant.unpack_po2``)."""
+    if x.is_floating_point():
+        x = quant.quantize_act(x, x_exp, bits=x_bits).to(torch.int8)
+    if w_shape is not None:
+        w = quant.unpack_po2(w, 4, w_shape)
+    return int8_matmul_scaled(x, w, shift=shift, clip16=clip16,
+                              out_exp=out_exp, axis_exponents=axis_exponents)
+
+
 def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, *, x_exp: int,
                 w_exp: int, out_exp: int | None = None,
                 residual_bits: int = 32) -> torch.Tensor:

@@ -189,11 +189,13 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
     v = v.reshape(b, sq, kv, dh)
     if cfg.attn_impl == "flash_lut":
         # flash-LUT attention: online softmax with the paper's LUT exp, in
-        # the [B, H, L, D] layout.  The cuda plan launches the kernel
-        # (kernels.ops); every other plan takes its plain version, so a
-        # launch counter counts the cuda plan only.  (The reference sends
-        # cached and windowed layouts to sdpa instead; this slice has
-        # neither.)
+        # the [B, H, L, D] layout, as views of the [B, L, H, D]
+        # projections: the kernel reads them where they lie and lays its
+        # output out so that the transpose back and the reshape below are
+        # views too.  The cuda plan launches the kernel (kernels.ops);
+        # every other plan takes its plain version, so a launch counter
+        # counts the cuda plan only.  (The reference sends cached and
+        # windowed layouts to sdpa instead; this slice has neither.)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         if cfg.act_approx == "cuda":
             from repro_torch.kernels import ops

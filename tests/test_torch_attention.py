@@ -349,3 +349,108 @@ def test_cuda_flash_lut_on_cpu_device_raises():
     with pytest.raises(ValueError, match="CUDA device"):
         trt.compile_model(tcfg, tp, backend="cuda", attention="flash_lut",
                           device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# strided operands and the 3xTF32 split of the kernel
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import lut_attention as tattn  # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(2, 27, 1, 8), (3, 99, 1, 64),
+                                   (2, 64, 4, 32), (1, 1, 2, 72)])
+def test_stride_extraction_reads_the_layers_views(shape):
+    """The layer hands the wrapper its ``[B, L, H, D]`` projections
+    transposed to ``[B, H, L, D]``: the (batch, head, row) strides the
+    kernel gets are those of the view, with no copy, and the CPU answer
+    on the view is the answer on its contiguous copy."""
+    b, l, h, d = shape
+    rng = np.random.default_rng(sum(shape))
+    base = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            for _ in range(3)]
+    q, k, v = (t.transpose(1, 2) for t in base)
+    assert tattn.strides(q, "q") == (l * h * d, d, h * d)
+    assert not q.is_contiguous() or h == 1 or l == 1
+    got = tops.lut_attention(q, k, v, causal=False)
+    want = tops.lut_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=False)
+    assert torch.equal(got, want)
+
+
+def test_wrapper_refuses_a_non_unit_depth_stride():
+    x = torch.zeros(1, 2, 3, 16)[..., ::2]          # depth stride 2
+    assert x.shape[3] == 8 and x.stride(3) == 2
+    with pytest.raises(ValueError, match="depth axis of q must have stride 1"):
+        tops.lut_attention(x, x.contiguous(), x.contiguous())
+    with pytest.raises(ValueError, match="depth axis of v"):
+        tops.lut_attention(x.contiguous(), x.contiguous(), x)
+    one = torch.zeros(1, 2, 3, 4)[..., :1]          # D = 1: any stride
+    assert tattn.strides(one, "q") == (24, 12, 4)
+
+
+def test_output_layout_makes_the_layers_reshape_a_view():
+    """On the card the output is allocated ``[B, L, H, D]`` and returned
+    transposed, so the layer's ``out.transpose(1, 2).reshape(B, L, H*D)``
+    reads it in place."""
+    q = torch.zeros(4, 3, 27, 8)
+    out = tattn.empty_out(q)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    flat = out.transpose(1, 2).reshape(4, 27, 3 * 8)
+    assert flat.data_ptr() == out.data_ptr()
+    assert out.transpose(1, 2).is_contiguous()
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """float32 -> TF32 (10 mantissa bits), to nearest, ties away from zero:
+    the kernel's ``(bits + 0x1000) & ~0x1fff``."""
+    u = x.astype(np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x: np.ndarray) -> np.ndarray:
+    """What the tensor core reads of a float32 operand: its top 10
+    mantissa bits (the low 13 bits ignored)."""
+    u = x.astype(np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _scores(q, k, split: bool) -> np.ndarray:
+    """q k^T / 8 with TF32 operands, products summed in float64, the score
+    rounded to float32: one pass of TF32, or the kernel's 3xTF32 split
+    (``a_hi = rna(a)``, ``a_lo`` = ``a - a_hi`` truncated; ``a_lo b_hi +
+    a_hi b_lo + a_hi b_hi``)."""
+    qh, kh = _tf32_rna(q), _tf32_rna(k)
+    if not split:
+        s = np.einsum("bqd,bkd->bqk", qh.astype(np.float64),
+                      kh.astype(np.float64))
+    else:
+        ql, kl = _tf32_trunc(q - qh), _tf32_trunc(k - kh)
+        s = sum(np.einsum("bqd,bkd->bqk", a.astype(np.float64),
+                          b.astype(np.float64))
+                for a, b in ((ql, kh), (qh, kl), (qh, kh)))
+    return (s.astype(np.float32) * np.float32(0.125)).astype(np.float32)
+
+
+def _bins(s: np.ndarray) -> np.ndarray:
+    m = s.max(axis=-1, keepdims=True)
+    return np.clip(((m - s).clip(0, 10) * 32).astype(np.int64), 0, 319)
+
+
+def test_3xtf32_split_keeps_the_lut_bins_where_single_tf32_does_not():
+    """At KWT-1's shape (99 x 99 scores over D = 64, scale 1/8) a row's
+    output moves when any of its scores moves to another 1/32 LUT bin.
+    Against the float64 scores: with the kernel's 3xTF32 split more than
+    ``ATTN_TIGHT_MIN_SHARE`` (98 %) of the rows keep every bin; with one
+    pass of TF32 most rows lose one."""
+    rng = np.random.default_rng(14)
+    q = rng.normal(size=(64, 99, 64)).astype(np.float32)
+    k = rng.normal(size=(64, 99, 64)).astype(np.float32)
+    exact = (np.einsum("bqd,bkd->bqk", q.astype(np.float64),
+                       k.astype(np.float64)) * 0.125)
+    want = _bins(exact)
+    kept = {split: float((_bins(_scores(q, k, split)) == want)
+                         .all(axis=-1).mean()) for split in (True, False)}
+    assert kept[True] >= 0.98, kept
+    assert kept[False] < 0.98, kept
+    assert kept[False] < 0.5, kept
