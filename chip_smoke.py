@@ -2,8 +2,9 @@
 """GPU smoke run of the PyTorch/CUDA port: ``python3 chip_smoke.py``.
 
 Needs one NVIDIA GPU (built for Hopper, ``sm_90a``) and ``nvcc``; takes no
-arguments.  It drives the port's main path — the Keyword Transformer
-served offline through ``repro_torch.runtime`` — on the card, and is the
+arguments.  It drives the port's main paths — the Keyword Transformer
+served offline through ``repro_torch.runtime``, streamed hop by hop, and
+trained with quantisation-aware training — on the card, and is the
 quickest proof that the port still builds and starts there:
 
 1. ``device``          the card, its power limit, TF32 off.
@@ -64,15 +65,42 @@ quickest proof that the port still builds and starts there:
                        per forward; one lane is reset mid-stream and
                        re-warms; p50 ms per hop and the real-time factor.
 
-The serve phases (4, 5) and the stream phases (6, 7) are the main paths:
-the counters go to 0 just before each pair and are read just after it;
-the launches of the stream phases' check forwards are taken out of the
-stream path's count, which must then equal what its steps launched.
-Any failing phase lets its exception out (non-zero exit); nothing falls
-back to the CPU.  Each phase prints one JSON line; the line before the
-last is ``{"kernels": [...]}`` with, per kernel, its launches on the main
-paths, its error against the plain version and its times; the last line
-is ``{"ok": true, "device": {...}}``.
+8. ``train_kwt_tiny``  quantisation-aware training through the launcher,
+                       ``repro_torch.launch.train.main``, under
+                       ``--qat-backend cuda`` (the LUT softmax and GELU
+                       kernels in every training forward, behind their
+                       straight-through estimators) with the KWT-1 teacher:
+                       a run that fails at step 35, its rerun, which must
+                       resume from step 30 (the newest step complete in
+                       every tree), and an uninterrupted run of the same
+                       seed, whose params must be ``torch.equal``; the loss
+                       falls; the export's QAT eval is ``torch.equal`` to
+                       the non-executing ``lut`` engine, the ``cuda`` plan
+                       within 0.35 of it, and the artifact read back from
+                       disk deploys bit-identically on that plan.
+9. ``train_kwt_1``     KWT-1 (12 layers, 40x98, 35 classes) trained the same
+                       way for 10 steps.
+   In both: the STE Functions at the step's own shapes (forward
+   ``torch.equal`` to the plain version, input gradient ``torch.equal`` to
+   ``torch.autograd.grad`` of the exact op, one launch in the forward and
+   none in the backward); one QAT step under ``cuda`` and one under ``lut``
+   from the same params and batch (loss, gradients, new params and moments
+   ``torch.equal``); p50 ms per QAT step and ATen ops per step, the
+   student alone and (KWT-Tiny) with the teacher.
+
+The serve phases (4, 5), the stream phases (6, 7) and the train phases
+(8, 9) are the main paths: the counters go to 0 just before each group and
+are read just after it; the launches of the stream phases' check forwards
+and of the train phases' checks are taken out of their paths' counts,
+which must then equal what the steps and runs launched.  Every path's
+count must equal what that path is expected to launch (the train path
+launches the softmax and the GELU ``n_layers`` times a step and neither
+the matmul nor the attention), and every kernel must be launched by some
+path.  Any failing phase lets its exception out (non-zero exit); nothing
+falls back to the CPU.  Each phase prints one JSON line; the line before
+the last is ``{"kernels": [...]}`` with, per kernel, its launches on the
+main paths, its error against the plain version and its times; the last
+line is ``{"ok": true, "device": {...}}``.
 
 Timing, two figures per call: ``ms``, CUDA events around a run of
 back-to-back calls of the wrapper (at the smallest shapes the cost of one
@@ -95,9 +123,13 @@ elementwise float32/int32 work and the attention's float32 products,
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import json
 import os
 import statistics
+import tempfile
 import subprocess
 import sys
 import time
@@ -109,14 +141,22 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import convert, runtime  # noqa: E402
+from repro_torch import convert, qat, runtime  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.core import quant  # noqa: E402
-from repro_torch.core.tree import tree_map  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.core import approx, quant  # noqa: E402
+from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import kwt  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.qat import train as qat_train  # noqa: E402
 from repro_torch.stream import engine as stream  # noqa: E402
 from repro_torch.stream import features  # noqa: E402
+
+qat_export = importlib.import_module("repro_torch.qat.export")
 
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -774,6 +814,7 @@ def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
     rng = np.random.default_rng(1)
     out = {"phase": f"serve_{cfg.name.replace('-', '_')}", "model": cfg.name,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "plans": []}
+    expected = {}
     for label, recipe_kw, attention in recipes:
         params = convert.from_numpy_tree(np_tree, dev)
         recipe = None if recipe_kw is None else \
@@ -854,8 +895,12 @@ def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
         plan["launches"] = {k: sum(e["launches"][k] for e in plan["batches"])
                             for k in ops.launch_counts()}
         out["plans"].append(plan)
+        # the path's count: the request forwards and the one that counted
+        # ATen ops
+        want = expected_launches(cfg, 1 + requests * len(batches), attention)
+        expected = {k: expected.get(k, 0) + want[k] for k in want}
     emit(out)
-    return out
+    return expected
 
 
 # ---------------------------------------------------------------------------
@@ -901,6 +946,7 @@ def phase_stream(name: str, dev, lanes: int, hops: int, reset_at: int) -> dict:
            "reset": {"lane": RESET_LANE, "at_hop": reset_at}, "plans": []}
     steps_rose = dict.fromkeys(ops.launch_counts(), 0)
     checks_rose = dict.fromkeys(steps_rose, 0)
+    expected = dict.fromkeys(steps_rose, 0)
     for attention in ("xla", "flash_lut"):
         eng = runtime.compile_model(cfg, convert.from_numpy_tree(np_tree, dev),
                                     backend="cuda", attention=attention,
@@ -929,6 +975,7 @@ def phase_stream(name: str, dev, lanes: int, hops: int, reset_at: int) -> dict:
                 raise AssertionError(f"{cfg.name} {attention} hop {i}: counters "
                                      f"rose by {rose}, expected {per_hop}")
             steps_rose = {n: steps_rose[n] + rose[n] for n in rose}
+            expected = {n: expected[n] + per_hop[n] for n in per_hop}
             lat.append(ms)
             rtf.append(ms / (k * hop_ms))
             ks.append(k)
@@ -970,7 +1017,292 @@ def phase_stream(name: str, dev, lanes: int, hops: int, reset_at: int) -> dict:
     out["launches"] = steps_rose
     out["check_forward_launches"] = checks_rose
     emit(out)
-    return steps_rose, checks_rose
+    return steps_rose, checks_rose, expected
+
+
+# ---------------------------------------------------------------------------
+# phases 8 + 9: the train path
+# ---------------------------------------------------------------------------
+
+TRAIN_TINY_ARGS = ["--arch", "kwt-tiny", "--qat", "--qat-backend", "cuda",
+                   "--distill-teacher-arch", "kwt-1",
+                   "--distill-teacher-steps", "20", "--steps", "60",
+                   "--global-batch", "64"]
+TRAIN_TINY_CKPT_EVERY, TRAIN_TINY_FAIL_AT = 10, 35
+TRAIN_KWT1_ARGS = ["--arch", "kwt-1", "--qat", "--qat-backend", "cuda",
+                   "--steps", "10", "--global-batch", "64"]
+TRAIN_BATCH = 64
+QAT_ENVELOPE = 0.35           # int-executing plan vs QAT eval: the
+                              # reference's own envelope (tests/test_qat.py)
+TIMED_STEPS = 20              # student-alone QAT steps timed per model
+
+
+def train_launches(cfg, steps_run: int) -> dict:
+    """A QAT step under the cuda backend launches the softmax and the GELU
+    once per layer in its forward, nothing in its backward (the STEs'
+    backward is the exact ops' gradient in plain PyTorch), and no matmul
+    (its linears are float products of fake-quant weights) or attention
+    (einsum attention: the flash-LUT kernel has no gradient)."""
+    return {"lut_softmax": cfg.n_layers * steps_run,
+            "lut_gelu": cfg.n_layers * steps_run,
+            "int8_matmul": 0, "lut_attention": 0}
+
+
+def run_main(argv: list) -> tuple:
+    """``launch.train.main(argv)`` with its per-step lines kept out of this
+    script's output (they are returned)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = train.main(argv)
+    return result, buf.getvalue()
+
+
+def check_ste(dev, cfg, b: int) -> dict:
+    """The STE Functions on the card at the step's own shapes: forward
+    ``torch.equal`` to the plain version, input gradient ``torch.equal``
+    to ``torch.autograd.grad`` of the exact op on the same tensor; one
+    launch in the forward, none in the backward."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sh = model_shapes(cfg, b)
+    out = {}
+    cases = {
+        # the model's call: approx.masked_softmax(scores, None, "cuda")
+        "lut_softmax": (sh["softmax"],
+                        lambda x: approx.masked_softmax(x, None, mode="cuda"),
+                        lambda x: approx.softmax_lut(x, fixed=True),
+                        lambda x: torch.softmax(x, dim=-1)),
+        "lut_gelu": (sh["gelu"], lambda x: approx.gelu(x, mode="cuda"),
+                     approx.gelu_lut, approx.gelu_exact)}
+    for name, (shape, fn, plain, exact) in cases.items():
+        x = (torch.randn(shape, generator=gen, device=dev) * 3.0
+             ).requires_grad_(True)
+        g = torch.randn(shape, generator=gen, device=dev)
+        before = ops.launch_counts()
+        y = fn(x)
+        fwd = _rise(before)
+        (gx,) = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+        bwd = {k: v - fwd[k] for k, v in _rise(before).items()}
+        want_fwd = {k: int(k == name) for k in fwd}
+        if fwd != want_fwd or any(bwd.values()):
+            raise AssertionError(f"STE {name}: forward launched {fwd}, "
+                                 f"backward {bwd}; expected {want_fwd} and none")
+        if y.grad_fn is None or "Ste" not in type(y.grad_fn).__name__:
+            raise AssertionError(f"STE {name}: the output's grad_fn is "
+                                 f"{y.grad_fn}, not the STE Function's")
+        with torch.no_grad():
+            want_y = plain(x)
+        (want_g,) = torch.autograd.grad(exact(x), x, g)
+        out[name] = {"shape": list(shape),
+                     "forward_max_abs_err": require_equal(
+                         f"STE {name} forward", y.detach(), want_y),
+                     "grad_max_abs_err": require_equal(
+                         f"STE {name} input gradient", gx, want_g),
+                     "forward_launches": fwd[name], "backward_launches": 0}
+    return out
+
+
+def _setup_step(cfg, dev, b: int, seed: int):
+    params = kwt.init_params(cfg, torch.Generator().manual_seed(seed), dev)
+    batch = steps.to_device(pipeline.keyword_batch(
+        seed, 0, batch=b, input_dim=cfg.input_dim, n_classes=cfg.n_classes),
+        dev)
+    hp = adamw.HParams(lr=1e-3, warmup_steps=2, total_steps=50)
+    return params, batch, hp, ShapeSpec("chip", cfg.input_dim[1], b, "train")
+
+
+def check_cuda_vs_lut_step(dev, cfg, b: int) -> dict:
+    """One QAT step under ``cuda`` and one under ``lut``, from the same
+    params and batch on the card: loss, every gradient and every new
+    parameter ``torch.equal``."""
+    params, batch, hp, shape = _setup_step(cfg, dev, b, 7)
+    got = {}
+    for backend in ("cuda", "lut"):
+        spec = qat.QATSpec(runtime.QuantRecipe.from_config(cfg),
+                           qat.QATConfig(backend=backend))
+        qs = qat.init_qat_state(spec, dev)
+        loss, grads = steps.value_and_grad(
+            qat_train.make_qat_loss(cfg, spec), params, batch,
+            qs["weight_exponent"], qs["step"] >= spec.config.start_step)
+        step = steps.make_train_step(cfg, shape, hp, n_micro=1, qat=spec)
+        new_p, new_opt, _, m = step(params, adamw.init(params, hp), qs, batch)
+        got[backend] = (loss, grads, new_p, new_opt, m["loss"])
+    (lc, gc, pc, oc, mc), (ll, gl, pl, ol, ml) = got["cuda"], got["lut"]
+    require_equal(f"{cfg.name} QAT loss cuda vs lut", lc, ll)
+    require_equal(f"{cfg.name} QAT step loss cuda vs lut", mc, ml)
+    for what, a, b_ in (("gradient", gc, gl), ("new param", pc, pl),
+                        ("new moment", oc, ol)):
+        for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b_))):
+            require_equal(f"{cfg.name} QAT {what} {i} cuda vs lut", x, y)
+    return {"loss": float(lc), "leaves_equal": len(tree_leaves(gc)),
+            "equal": True}
+
+
+def time_qat_steps(dev, cfg, spec, b: int, n: int) -> dict:
+    """p50 ms per QAT step (forward + backward + AdamW: the host clock
+    around the step and a synchronize), launches per step, and the ATen
+    ops one step dispatches (backward included)."""
+    params, batch, hp, shape = _setup_step(cfg, dev, b, 9)
+    step = steps.make_train_step(cfg, shape, hp, n_micro=1, qat=spec)
+    opt, qs = adamw.init(params, hp), qat.init_qat_state(spec, dev)
+    for _ in range(2):
+        params, opt, qs, _ = step(params, opt, qs, batch)
+    lat, per_step = [], train_launches(cfg, 1)
+    for _ in range(n):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, qs, m = step(params, opt, qs, batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if _rise(before) != per_step:
+            raise AssertionError(f"{cfg.name} QAT step launched {_rise(before)}"
+                                 f", expected {per_step}")
+    with CountOps() as counter:
+        params, opt, qs, m = step(params, opt, qs, batch)
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(m["loss"])):
+        raise AssertionError(f"{cfg.name}: timed QAT steps diverged")
+    return {"steps": n, "p50_ms_per_step": statistics.median(lat),
+            "aten_ops_per_step": counter.n, "launches_per_step": per_step}
+
+
+def check_export(dev, cfg, result, tmp: str) -> dict:
+    """The trained run's export on the card: QAT eval under the cuda exec
+    config ``torch.equal`` to the non-executing ``lut`` engine; the
+    integer-executing ``cuda`` plan within ``QAT_ENVELOPE``; the artifact
+    written to disk and read back deploys bit-identically on that plan."""
+    ex, spec = result.export, result.qat_spec
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(0, 1.0, (TRAIN_BATCH, *cfg.input_dim))
+                         .astype(np.float32)).to(dev)
+    ev = qat.eval_forward(cfg, spec, ex.recipe)(result.params, x)
+    lut = runtime.compile_model(cfg, ex.params, backend="lut", recipe=ex.recipe,
+                                integer_exec=False, device=dev).forward(x)
+    require_equal(f"{cfg.name} QAT eval vs exported lut engine", ev, lut)
+    plan = runtime.compile_model(cfg, ex.params, backend="cuda",
+                                 recipe=ex.recipe, device=dev)
+    served = plan.forward(x)
+    envelope = max_abs_err(served, ev)
+    if not envelope < QAT_ENVELOPE:
+        raise AssertionError(f"{cfg.name}: cuda plan {envelope} from the QAT "
+                             f"eval (envelope {QAT_ENVELOPE})")
+    path = os.path.join(tmp, "artifact")
+    qat_export.save(path, ex)
+    recipe, qtree = qat_export.load(path, ex.qparams, device=dev)
+    if recipe != ex.recipe:
+        raise AssertionError(f"artifact recipe {recipe} != {ex.recipe}")
+    loaded = runtime.compile_model(cfg, qtree, backend="cuda", device=dev)
+    require_equal(f"{cfg.name} artifact from disk on the cuda plan",
+                  loaded.forward(x), served)
+    return {"eval_vs_lut_engine": "torch.equal", "cuda_plan_vs_eval": envelope,
+            "envelope": QAT_ENVELOPE, "artifact_reload": "torch.equal",
+            "artifact_bytes": list(ex.quantized_bytes),
+            "argmax_agree_cuda_vs_eval": float(
+                (served.argmax(-1) == ev.argmax(-1)).float().mean())}
+
+
+def phase_train_kwt_tiny(dev, tmp: str) -> tuple:
+    """KWT-Tiny trained by ``launch.train.main`` under ``--qat-backend
+    cuda`` with the KWT-1 teacher: a run that fails at step 35, its
+    rerun that resumes from the newest step complete in every tree (30)
+    and an uninterrupted run of the same seed, whose params must be
+    ``torch.equal``; then the loss, the export and the checks of both
+    train phases.  Returns the line, the launches of the ``main`` runs
+    (the path's), those of the checks, and the path's expected count."""
+    cfg = registry.get("kwt-tiny").config
+    out = {"phase": "train_kwt_tiny", "model": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "argv": TRAIN_TINY_ARGS}
+    ckpt = os.path.join(tmp, "ckpt")
+    ck = ["--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_TINY_CKPT_EVERY)]
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run_main(TRAIN_TINY_ARGS + ck + ["--fail-at-step",
+                                         str(TRAIN_TINY_FAIL_AT)])
+    except RuntimeError as err:
+        if "injected failure" not in str(err):
+            raise
+    else:
+        raise AssertionError("the run with --fail-at-step did not fail")
+    resumed, log = run_main(TRAIN_TINY_ARGS + ck)
+    full, _ = run_main(TRAIN_TINY_ARGS)
+    path = _rise(before)
+    out["seconds_three_runs"] = time.perf_counter() - t0
+    want_resume = TRAIN_TINY_FAIL_AT // TRAIN_TINY_CKPT_EVERY * \
+        TRAIN_TINY_CKPT_EVERY
+    if resumed.resumed_from != want_resume or \
+            f"[restore] resuming from step {want_resume}" not in log:
+        raise AssertionError(f"resumed from {resumed.resumed_from}, expected "
+                             f"{want_resume}")
+    for i, (a, b) in enumerate(zip(tree_leaves(resumed.params),
+                                   tree_leaves(full.params))):
+        require_equal(f"resumed vs uninterrupted param {i}", a, b)
+    n_steps = int(TRAIN_TINY_ARGS[TRAIN_TINY_ARGS.index("--steps") + 1])
+    steps_run = TRAIN_TINY_FAIL_AT + (n_steps - want_resume) + n_steps
+    expected = train_launches(cfg, steps_run)
+    if path != expected:
+        raise AssertionError(f"the train runs launched {path}, expected "
+                             f"{expected}")
+    losses = full.losses
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"loss: first five {first}, last five {last}")
+    out.update(resumed_from=resumed.resumed_from, resume_params_equal=True,
+               steps_run=steps_run, loss_first5=first, loss_last5=last,
+               p50_ms_per_step_with_teacher=statistics.median(full.step_ms),
+               recipe=full.export.recipe.to_dict())
+    before = ops.launch_counts()
+    out["export"] = check_export(dev, cfg, full, tmp)
+    out.update(common_train_checks(dev, cfg, full.qat_spec))
+    checks = _rise(before)
+    out["launches"], out["check_launches"] = path, checks
+    emit(out)
+    return path, checks, expected
+
+
+def common_train_checks(dev, cfg, spec_with_teacher=None) -> dict:
+    """The checks both train phases make: the STE at the step's shapes,
+    ``cuda`` against ``lut`` on one step, and the step's time and ATen ops
+    (student alone, and with the teacher where there is one)."""
+    out = {"ste": check_ste(dev, cfg, TRAIN_BATCH),
+           "cuda_vs_lut_step": check_cuda_vs_lut_step(dev, cfg, TRAIN_BATCH)}
+    student = qat.QATSpec(runtime.QuantRecipe.from_config(cfg),
+                          qat.QATConfig(backend="cuda"))
+    out["timed_student"] = time_qat_steps(dev, cfg, student, TRAIN_BATCH,
+                                          TIMED_STEPS)
+    if spec_with_teacher is not None:
+        out["timed_with_teacher"] = time_qat_steps(
+            dev, cfg, spec_with_teacher, TRAIN_BATCH, TIMED_STEPS)
+    return out
+
+
+def phase_train_kwt_1(dev) -> tuple:
+    """KWT-1 at full width and depth on its 40x98 input, 35 classes,
+    trained by ``launch.train.main`` under ``--qat-backend cuda``."""
+    cfg = registry.get("kwt-1").config
+    out = {"phase": "train_kwt_1", "model": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "argv": TRAIN_KWT1_ARGS}
+    before = ops.launch_counts()
+    result, _ = run_main(TRAIN_KWT1_ARGS)
+    path = _rise(before)
+    n_steps = int(TRAIN_KWT1_ARGS[TRAIN_KWT1_ARGS.index("--steps") + 1])
+    expected = train_launches(cfg, n_steps)
+    if path != expected:
+        raise AssertionError(f"the train run launched {path}, expected "
+                             f"{expected}")
+    if not all(np.isfinite(result.losses)) or len(result.losses) != n_steps:
+        raise AssertionError(f"KWT-1 losses {result.losses}")
+    out.update(losses=result.losses,
+               p50_ms_per_step_launcher=statistics.median(result.step_ms))
+    before = ops.launch_counts()
+    out.update(common_train_checks(dev, cfg))
+    checks = _rise(before)
+    out["launches"], out["check_launches"] = path, checks
+    emit(out)
+    return path, checks, expected
 
 
 # ---------------------------------------------------------------------------
@@ -1011,16 +1343,22 @@ def _variants(rows: list, model: str, batch: int, tag) -> list:
     return list(out.values())
 
 
-def kernels_line(rows: dict, launches: dict, headline_model: str,
-                 headline_batch: int) -> dict:
+def kernels_line(rows: dict, launches: dict, expected: dict,
+                 headline_model: str, headline_batch: int) -> dict:
     """One entry per kernel.  The headline numbers are those of the
     variant the main path runs (Q8.24 softmax, nearest GELU, the float32
     epilogue at the MLP's first linear, LUT attention) at
     ``headline_model`` / ``headline_batch``; ``variants`` sums up every
     checked variant (all shapes, ragged ones included) with its own
     headline times where it was timed.  ``launches`` is the sum over the
-    main paths, ``launches_by_path`` each path's own count.  The
+    main paths, ``launches_by_path`` each path's own count, which must be
+    ``expected[path]``; every kernel must be launched by some path (the
+    train path launches neither the matmul nor the attention).  The
     ``kernels`` phase line above holds every row."""
+    for path, counts in launches.items():
+        if counts != expected[path]:
+            raise AssertionError(f"the {path} path launched {counts}, "
+                                 f"expected {expected[path]}")
     main_variant = {"lut_softmax": lambda r: r["variant"] == "fixed",
                     "lut_gelu": lambda r: r["variant"] == "nearest",
                     # the int8 plans' input: the float activation
@@ -1034,9 +1372,8 @@ def kernels_line(rows: dict, launches: dict, headline_model: str,
                     and r.get("batch") == headline_batch
                     and main_variant[name](r))
         by_path = {path: counts[name] for path, counts in launches.items()}
-        if min(by_path.values()) <= 0:
-            raise AssertionError(f"a main path launched {name} no time: "
-                                 f"{by_path}")
+        if sum(by_path.values()) <= 0:
+            raise AssertionError(f"no main path launched {name}: {by_path}")
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -1066,31 +1403,47 @@ def main() -> None:
 
     # The main paths.  Every count goes to 0 just before each and is read
     # just after it: launches made above to compare kernels do not count.
-    launches = {}
+    launches, expected = {}, {}
     ops.reset_launch_counts()
-    phase_serve("kwt-tiny", dev, (1, 8, 64, 4096),
-                [("int8 (Table V)", None, "xla"),
-                 ("int8 (Table V)", None, "flash_lut")], requests=5)
-    phase_serve("kwt-1", dev, (1, 64),
-                [("int8 (Table V defaults)", None, "xla"),
-                 ("int4 per-channel", dict(bits=4, weight_exponent=4,
-                                           per_channel=True), "xla"),
-                 ("int8 (Table V defaults)", None, "flash_lut")])
+    serve = [phase_serve("kwt-tiny", dev, (1, 8, 64, 4096),
+                         [("int8 (Table V)", None, "xla"),
+                          ("int8 (Table V)", None, "flash_lut")], requests=5),
+             phase_serve("kwt-1", dev, (1, 64),
+                         [("int8 (Table V defaults)", None, "xla"),
+                          ("int4 per-channel", dict(bits=4, weight_exponent=4,
+                                                    per_channel=True), "xla"),
+                          ("int8 (Table V defaults)", None, "flash_lut")])]
     launches["serve"] = ops.launch_counts()
+    expected["serve"] = {n: sum(e[n] for e in serve) for n in serve[0]}
     ops.reset_launch_counts()
     runs = [phase_stream("kwt-tiny", dev, lanes=64, hops=64, reset_at=30),
             phase_stream("kwt-1", dev, lanes=64, hops=216, reset_at=104)]
     counted = ops.launch_counts()
     # the stream path's own launches: what the counters read less what the
     # check forwards added, which must be what its stream_step calls added
-    launches["stream"] = {n: counted[n] - sum(c[n] for _, c in runs)
+    launches["stream"] = {n: counted[n] - sum(c[n] for _, c, _ in runs)
                           for n in counted}
-    steps = {n: sum(s[n] for s, _ in runs) for n in counted}
-    if launches["stream"] != steps:
+    expected["stream"] = {n: sum(e[n] for _, _, e in runs) for n in counted}
+    steps_rose = {n: sum(s[n] for s, _, _ in runs) for n in counted}
+    if launches["stream"] != steps_rose:
         raise AssertionError(f"stream launches {launches['stream']} are not "
-                             f"those of its steps, {steps}")
+                             f"those of its steps, {steps_rose}")
+    # the train path: the launcher's runs, less the launches of the checks
+    # each train phase makes after them
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=build.build_dir()) as tmp:
+        runs = [phase_train_kwt_tiny(dev, tmp), phase_train_kwt_1(dev)]
+    counted = ops.launch_counts()
+    launches["train"] = {n: counted[n] - sum(c[n] for _, c, _ in runs)
+                         for n in counted}
+    expected["train"] = {n: sum(e[n] for _, _, e in runs) for n in counted}
+    runs_rose = {n: sum(p[n] for p, _, _ in runs) for n in counted}
+    if launches["train"] != runs_rose:
+        raise AssertionError(f"train launches {launches['train']} are not "
+                             f"those of its runs, {runs_rose}")
 
-    emit(kernels_line(rows, launches, "kwt-1", 64))
+    emit(kernels_line(rows, launches, expected, "kwt-1", 64))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -101,6 +101,14 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchEntry:
     config: ModelConfig
     shapes: tuple

@@ -9,6 +9,13 @@ dataclass with numpy fields, or the dict :func:`to_numpy_tree` writes)
 becomes a ``repro_torch.core.quant.QTensor`` with the same stored bytes,
 so a tree quantised by the reference deploys in the port as-is.
 
+Training state crosses the same way: :func:`opt_state_from_numpy` takes
+the reference's AdamW state (``m``, ``v`` — float32 moments, or int8
+``{"q", "scale"}`` ones — and the int32 ``step``) and
+:func:`qat_state_from_numpy` its QAT state (int32 ``step``, float32
+``weight_exponent``), so that one step of each package can start from the
+same state.
+
 This module imports neither package of the reference nor jax; the caller
 does ``jax.tree.map(np.asarray, params)`` on its side.
 """
@@ -79,3 +86,32 @@ def to_numpy_tree(tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return tree
+
+
+def _checked_state(tree, name: str, dtypes: dict, device) -> dict:
+    if not isinstance(tree, dict) or set(tree) != set(dtypes):
+        raise ValueError(f"{name} holds the keys {sorted(dtypes)}, got "
+                         f"{sorted(tree) if isinstance(tree, dict) else tree!r}")
+    out = from_numpy_tree(tree, device)
+    for key, dt in dtypes.items():
+        if dt is not None:
+            out[key] = out[key].to(dt)
+    return out
+
+
+def opt_state_from_numpy(tree: Any, device=None) -> dict:
+    """The reference's ``optim.adamw`` state as numpy -> the port's, on
+    ``device`` (``None`` is the card).  Moments keep their dtypes (float32,
+    or int8 ``q`` with a float32 ``scale``); ``step`` is int32."""
+    return _checked_state(tree, "an AdamW state",
+                          {"m": None, "v": None, "step": torch.int32},
+                          resolve_device(device))
+
+
+def qat_state_from_numpy(tree: Any, device=None) -> dict:
+    """The reference's QAT state ``{"step", "weight_exponent"}`` as numpy
+    -> the port's 0-dim int32 / float32 tensors on ``device``."""
+    return _checked_state(tree, "a QAT state",
+                          {"step": torch.int32,
+                           "weight_exponent": torch.float32},
+                          resolve_device(device))

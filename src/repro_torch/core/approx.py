@@ -18,19 +18,108 @@ Dispatch contract:
                for a tensor on the card, its plain version for a tensor
                on the CPU.
 
-This slice serves only: nothing here needs a gradient, so the reference's
-straight-through-estimator wrappers, its SiLU / softplus / squared-ReLU
-family, the bf16 softmax branch and the quantisation-health taps are not
-ported yet.
+Every non-exact mode is wrapped in a straight-through estimator
+(:func:`ste`, :func:`ste_masked`, ``torch.autograd.Function``s): the
+forward value is the approx pipeline verbatim (for ``cuda`` on a CUDA
+tensor, the kernel's output itself), while the backward is the gradient
+of the exact float op at the saved input.  This is what lets
+``repro_torch.qat`` put the deployed LUT numerics inside the training
+loss.  The Function is used only where a gradient is asked for
+(``torch.is_grad_enabled() and x.requires_grad``): under
+``torch.inference_mode()`` or ``torch.no_grad()`` — every serving path —
+the pipeline runs as it is, saves nothing and dispatches no extra op.
+
+Not ported yet: the reference's SiLU / softplus / squared-ReLU family
+(ROADMAP queue A item 8), its bf16 softmax branch and the
+quantisation-health taps (item 7).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.core import lut as lutlib
+
+
+# ---------------------------------------------------------------------------
+# Straight-through estimators
+# ---------------------------------------------------------------------------
+
+def _records_grad(x: torch.Tensor) -> bool:
+    """Whether an autograd graph is being recorded through ``x``: the
+    test that decides between the STE Function and the bare pipeline."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _exact_grad(smooth_fn, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The exact op's input gradient at ``x``: ``torch.autograd.grad`` of
+    ``smooth_fn`` on a fresh leaf, so that the result is the same bits as
+    that call made by hand (PyTorch's own softmax / GELU backward)."""
+    with torch.enable_grad():
+        leaf = x.detach().requires_grad_(True)
+        (gx,) = torch.autograd.grad(smooth_fn(leaf), leaf, g)
+    return gx
+
+
+class Ste(torch.autograd.Function):
+    """STE over one operand: ``forward`` runs ``primal_fn(x)`` verbatim
+    (the LUT / fixed-point pipeline or the CUDA kernel — bit-identical to
+    calling it directly) and saves ``x``; ``backward`` returns the
+    gradient of ``smooth_fn`` (the exact float op) at ``x``.  It launches
+    no kernel: the exact op's backward is plain PyTorch, as the
+    reference's is plain XLA."""
+
+    @staticmethod
+    def forward(ctx, x, primal_fn, smooth_fn):
+        ctx.save_for_backward(x)
+        ctx.smooth_fn = smooth_fn
+        return primal_fn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return _exact_grad(ctx.smooth_fn, x, g), None, None
+
+
+class SteMasked(torch.autograd.Function):
+    """STE over ``(x, mask)``: the boolean mask is an explicit operand
+    with no gradient, handed to both the primal and the exact op."""
+
+    @staticmethod
+    def forward(ctx, x, mask, primal_fn, smooth_fn):
+        ctx.save_for_backward(x, mask)
+        ctx.smooth_fn = smooth_fn
+        return primal_fn(x, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask = ctx.saved_tensors
+        gx = _exact_grad(lambda v: ctx.smooth_fn(v, mask), x, g)
+        return gx, None, None, None
+
+
+def ste(primal_fn, smooth_fn):
+    """Straight-through estimator: ``f(x)`` is ``primal_fn(x)``; where a
+    gradient is recorded, through :class:`Ste`, whose backward is the
+    gradient of ``smooth_fn`` at the same input."""
+    def f(x):
+        if not _records_grad(x):
+            return primal_fn(x)
+        return Ste.apply(x, primal_fn, smooth_fn)
+    return f
+
+
+def ste_masked(primal_fn, smooth_fn):
+    """:func:`ste` over ``(x, mask)`` (:class:`SteMasked`)."""
+    def f(x, mask):
+        if not _records_grad(x):
+            return primal_fn(x, mask)
+        return SteMasked.apply(x, mask, primal_fn, smooth_fn)
+    return f
 
 
 # ---------------------------------------------------------------------------
@@ -109,16 +198,71 @@ def softmax(x: torch.Tensor, axis: int = -1, mode: str = "exact",
             **kw) -> torch.Tensor:
     if mode == "exact":
         return softmax_exact(x, axis)
-    if mode == "lut":
-        return softmax_lut(x, axis, fixed=False, **kw)
-    if mode == "lut_fixed":
-        return softmax_lut(x, axis, fixed=True, **kw)
-    if mode == "cuda":
+    if mode in ("lut", "lut_fixed"):
+        primal = functools.partial(softmax_lut, axis=axis,
+                                   fixed=mode == "lut_fixed", **kw)
+    elif mode == "cuda":
         if axis not in (-1, x.ndim - 1):
             raise ValueError("the softmax kernel reduces the last axis")
-        from repro_torch.kernels import ops
-        return ops.lut_softmax(x, fixed=True)
-    raise ValueError(f"unknown softmax mode {mode!r}")
+        primal = _softmax_kernel
+    else:
+        raise ValueError(f"unknown softmax mode {mode!r}")
+    return ste(primal, functools.partial(softmax_exact, axis=axis))(x)
+
+
+def _softmax_kernel(x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.kernels import ops
+    return ops.lut_softmax(x, fixed=True)
+
+
+_NEG = torch.finfo(torch.float32).min
+
+
+def _masked_exact(s: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    sm = s if mask is None else torch.where(mask, s, _NEG)
+    out = torch.softmax(sm, dim=-1)
+    return out if mask is None else torch.where(mask, out, 0.0)
+
+
+def _masked_cuda(s: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    # Kernel path: unmasked rows are the kernel's LUT pipeline verbatim
+    # (bit-identical to ops.lut_softmax).  With a mask, masked lanes enter
+    # the kernel at the z=10 clip bin (the paper's own off-range leak);
+    # they are zeroed and the row renormalised in f32.
+    from repro_torch.kernels import ops
+    sm = s if mask is None else torch.where(mask, s, _NEG)
+    out = ops.lut_softmax(sm, fixed=True)
+    if mask is not None:
+        out = torch.where(mask, out, 0.0)
+        out = out / out.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    return out
+
+
+def _masked_lut(s: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    sm = s if mask is None else torch.where(mask, s, _NEG)
+    z = (sm.amax(dim=-1, keepdim=True) - s).clamp(0.0, lutlib.EXP_RANGE)
+    num = lutlib.bank_tensors(s.device)["exp_f32"][_exp_index_f32(z)]
+    if mask is not None:
+        num = torch.where(mask, num, 0.0)
+    return num / num.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+
+
+def _masked_lut_fixed(s: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    sm = s if mask is None else torch.where(mask, s, _NEG)
+    z = (sm.amax(dim=-1, keepdim=True) - s).clamp(0.0, lutlib.EXP_RANGE)
+    tabs = lutlib.bank_tensors(s.device)
+    pre = pre_shift_bits(s.shape[-1])
+    num_q = tabs["exp_q24"][lutlib.exp_index_from_q24(fxp.to_fixed(z)).long()]
+    if mask is not None:
+        num_q = torch.where(mask, num_q, 0)
+    s_q = _pre_shift(num_q, pre).sum(dim=-1, keepdim=True, dtype=torch.int32)
+    s_q = s_q.clamp(min=1)
+    inv_q = lutlib.reciprocal_q24(s_q) >> pre
+    return fxp.to_float(fxp.fixed_mul(num_q, inv_q, nonneg=True))
+
+
+_MASKED_PRIMALS = {"cuda": _masked_cuda, "lut": _masked_lut,
+                   "lut_fixed": _masked_lut_fixed}
 
 
 def masked_softmax(s: torch.Tensor, mask: torch.Tensor | None,
@@ -128,43 +272,20 @@ def masked_softmax(s: torch.Tensor, mask: torch.Tensor | None,
     For the LUT modes, masked lanes are excluded from the numerator sum
     (they never reach the ROM), mirroring the paper's C pipeline which only
     computes valid entries — not approximated to e^{-10} by the clip.
-    Rows that are fully masked return zeros.
+    Rows that are fully masked return zeros.  The non-exact modes are
+    STEs whose backward is the exact masked softmax's gradient.
     """
     s = s.to(torch.float32)
-    neg = torch.finfo(torch.float32).min
-    sm = s if mask is None else torch.where(mask, s, neg)
-
     if mode == "exact":
-        out = torch.softmax(sm, dim=-1)
-        return out if mask is None else torch.where(mask, out, 0.0)
-    if mode == "cuda":
-        # Kernel path: unmasked rows are the kernel's LUT pipeline verbatim
-        # (bit-identical to ops.lut_softmax).  With a mask, masked lanes
-        # enter the kernel at the z=10 clip bin (the paper's own off-range
-        # leak); they are zeroed and the row renormalised in f32.
-        from repro_torch.kernels import ops
-        out = ops.lut_softmax(sm, fixed=True)
-        if mask is not None:
-            out = torch.where(mask, out, 0.0)
-            out = out / out.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-        return out
-    if mode not in ("lut", "lut_fixed"):
-        raise ValueError(f"unknown softmax mode {mode!r}")
-    tabs = lutlib.bank_tensors(s.device)
-    z = (sm.amax(dim=-1, keepdim=True) - s).clamp(0.0, lutlib.EXP_RANGE)
-    if mode == "lut":
-        num = tabs["exp_f32"][_exp_index_f32(z)]
-        if mask is not None:
-            num = torch.where(mask, num, 0.0)
-        return num / num.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-    pre = pre_shift_bits(s.shape[-1])
-    num_q = tabs["exp_q24"][lutlib.exp_index_from_q24(fxp.to_fixed(z)).long()]
-    if mask is not None:
-        num_q = torch.where(mask, num_q, 0)
-    s_q = _pre_shift(num_q, pre).sum(dim=-1, keepdim=True, dtype=torch.int32)
-    s_q = s_q.clamp(min=1)
-    inv_q = lutlib.reciprocal_q24(s_q) >> pre
-    return fxp.to_float(fxp.fixed_mul(num_q, inv_q, nonneg=True))
+        return _masked_exact(s, mask)
+    try:
+        primal = _MASKED_PRIMALS[mode]
+    except KeyError:
+        raise ValueError(f"unknown softmax mode {mode!r}") from None
+    if mask is None:
+        return ste(lambda v: primal(v, None),
+                   lambda v: _masked_exact(v, None))(s)
+    return ste_masked(primal, _masked_exact)(s, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -198,17 +319,21 @@ def gelu_lut(x: torch.Tensor, *, interp: bool = False,
     return torch.where(x > hi, x, torch.where(x < lo, 0.0, mid))
 
 
+def _gelu_kernel(x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.kernels import ops
+    return ops.lut_gelu(x)
+
+
 def gelu(x: torch.Tensor, mode: str = "exact", **kw) -> torch.Tensor:
     if mode == "exact":
         return gelu_exact(x)
-    if mode == "lut":
-        return gelu_lut(x, interp=False, **kw)
-    if mode == "lut_interp":
-        return gelu_lut(x, interp=True, **kw)
-    if mode == "cuda":
-        from repro_torch.kernels import ops
-        return ops.lut_gelu(x)
-    raise ValueError(f"unknown gelu mode {mode!r}")
+    if mode in ("lut", "lut_interp"):
+        primal = functools.partial(gelu_lut, interp=mode == "lut_interp", **kw)
+    elif mode == "cuda":
+        primal = _gelu_kernel
+    else:
+        raise ValueError(f"unknown gelu mode {mode!r}")
+    return ste(primal, gelu_exact)(x)
 
 
 def activation(name: str, mode: str = "exact"):
@@ -219,6 +344,6 @@ def activation(name: str, mode: str = "exact"):
         return lambda x: gelu(x, mode="lut" if mode != "exact" else "exact")
     if name in ("silu", "sqrelu", "relu"):
         raise NotImplementedError(
-            f"activation {name!r} serves the LM families, which are a later "
-            "slice of the port")
+            f"activation {name!r} serves the LM families, ROADMAP queue A "
+            "item 8, not ported yet")
     raise ValueError(f"unknown activation {name!r}")

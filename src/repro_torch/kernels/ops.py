@@ -51,13 +51,33 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
+def refuse_grad(x: torch.Tensor, what: str) -> None:
+    """Raise where a wrapper would cut a gradient: its output is written by
+    a kernel (or, on the CPU, by integer table lookups) and carries no
+    ``grad_fn``, so called on a tensor that requires grad while a graph is
+    recorded it would silently give every weight upstream no gradient.
+    Training reaches the kernels through the straight-through estimators
+    of ``core.approx``, whose forward runs with grad mode off."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{what} has no gradient: called on a tensor that requires grad "
+            "while grad mode is on, its output would cut the graph. Train "
+            "through the straight-through estimator (core.approx.softmax / "
+            "masked_softmax / gelu, whose STE Function calls this wrapper "
+            "in its forward), or call it under torch.no_grad()")
+
+
 def lut_gelu(x: torch.Tensor, *, interp: bool = False) -> torch.Tensor:
-    """Piecewise LUT GELU over any-shaped input (output in ``x.dtype``)."""
+    """Piecewise LUT GELU over any-shaped input (output in ``x.dtype``).
+    Refuses a tensor that is recording a gradient (:func:`refuse_grad`)."""
+    refuse_grad(x, "lut_gelu")
     return _gelu.lut_gelu_flat(x, interp=interp)
 
 
 def lut_softmax(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
-    """LUT softmax along the last axis of any-shaped input."""
+    """LUT softmax along the last axis of any-shaped input.  Refuses a
+    tensor that is recording a gradient (:func:`refuse_grad`)."""
+    refuse_grad(x, "lut_softmax")
     return _sm.lut_softmax_rows(x, fixed=fixed)
 
 

@@ -99,6 +99,16 @@ def forward(params, mfcc, cfg):
     return encode_window(params, x, cfg)
 
 
+def loss_fn(params, batch, cfg):
+    """Mean cross-entropy of the logits against ``batch["labels"]``:
+    logsumexp less the gold logit, as the reference writes it."""
+    logits = forward(params, batch["mfcc"], cfg)
+    labels = batch["labels"]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[:, None])[:, 0]
+    return (logz - gold).mean()
+
+
 def accuracy(params, batch, cfg):
     logits = forward(params, batch["mfcc"], cfg)
     return (logits.argmax(-1) == batch["labels"]).to(torch.float32).mean()

@@ -12,7 +12,7 @@ Cacheless attention runs either the plain einsum path (``sdpa``,
 (``attn_impl == "flash_lut"``): the hand-written kernel on the ``cuda``
 plan, its plain version on every other plan.
 
-Waiting for the LM slice of the port: RMSNorm, RoPE, qk-norm, GQA KV
+Waiting for ROADMAP queue A item 8 (LM families): RMSNorm, RoPE, qk-norm, GQA KV
 caches, sliding windows, query-chunked attention, gated MLPs and the
 quantisation-health taps.
 """
@@ -25,7 +25,7 @@ import torch
 from repro_torch.core import approx
 from repro_torch.core import quant
 
-_LATER = "belongs to the LM slice of the port (not ported yet)"
+_LATER = "is not ported yet: it waits for ROADMAP queue A item 8 (LM families)"
 
 
 def executes_int(w, eq: str, cfg) -> bool:

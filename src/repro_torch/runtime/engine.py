@@ -48,8 +48,8 @@ def _model_module(cfg):
         from repro_torch.models import kwt
         return kwt
     raise NotImplementedError(
-        f"family={cfg.family!r}: the LM families are a later slice of the "
-        "port; this one serves the kwt family")
+        f"family={cfg.family!r} is not ported yet: the LM families wait for "
+        "ROADMAP queue A item 8")
 
 
 def _tree_bytes(tree) -> int:
@@ -57,9 +57,9 @@ def _tree_bytes(tree) -> int:
                if isinstance(x, torch.Tensor))
 
 
-def _later(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} is not ported yet: it belongs to the "
-                              f"{slice_name} slice of the port")
+def _later(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet: it waits for "
+                              f"ROADMAP queue A {item}")
 
 
 @dataclasses.dataclass
@@ -132,13 +132,13 @@ class Engine:
                 fcfg)
 
     def init_decode_state(self, batch: int, max_len: int):
-        _later("Engine.init_decode_state", "LM-families")
+        _later("Engine.init_decode_state", "item 8 (LM families)")
 
     def prefill(self, tokens, state):
-        _later("Engine.prefill", "LM-families")
+        _later("Engine.prefill", "item 8 (LM families)")
 
     def decode_step(self, token, state):
-        _later("Engine.decode_step", "LM-families")
+        _later("Engine.decode_step", "item 8 (LM families)")
 
     # -- introspection -----------------------------------------------------
 
@@ -251,7 +251,7 @@ def compile_model(cfg, params, backend="float",
     none.  The ``cuda`` backend on a CPU device raises.
     """
     if taps:
-        _later("compile_model(taps=True)", "telemetry")
+        _later("compile_model(taps=True)", "item 7 (telemetry)")
     be = get_backend(backend)
     device = resolve_device(device)
     if be.uses_kernels and device.type != "cuda":

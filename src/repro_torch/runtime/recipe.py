@@ -153,6 +153,17 @@ class QuantRecipe:
         return quant.QTensor.store(q, self.weight_exponent, bits=self.bits,
                                    axis_exponents=extra.to(torch.int8))
 
+    def fake_quant_leaf(self, w: torch.Tensor, weight_exponent=None):
+        """(fq, unsat) for one weight leaf — the QAT forward-pass values.
+        ``weight_exponent`` (a Python number or a 0-dim tensor, e.g. the
+        learned exponent on the device) overrides the recipe field."""
+        e = self.weight_exponent if weight_exponent is None else weight_exponent
+        fq, _, _, unsat = po2_fake_quant(w, e, bits=self.bits,
+                                         rounding=self.rounding,
+                                         per_channel=self.per_channel and
+                                         w.ndim >= 2)
+        return fq, unsat
+
     def quantize(self, params: Pytree) -> Pytree:
         """params -> tree with QTensor leaves (norms/biases stay float)."""
         return tree_map(
