@@ -65,7 +65,39 @@ quickest proof that the port still builds and starts there:
                        per forward; one lane is reset mid-stream and
                        re-warms; p50 ms per hop and the real-time factor.
 
-8. ``train_kwt_tiny``  quantisation-aware training through the launcher,
+   The stream phases also hold the streaming MFCC frames ``torch.equal`` to
+   the offline frames of the same audio: the frontend runs its FFT and both
+   products on blocks of a fixed shape on the card (``stream.features``), so a
+   frame's features do not depend on how many frames share the call.
+8. ``cell_kwt_tiny``   the always-on server through its launcher,
+                       ``repro_torch.launch.stream_serve.main``, under
+                       ``--backend cuda``: 24 seeded event streams on 8
+                       slots, the degrade stage on, tracing on (the lanes go
+                       through ``Engine.stream_step`` and its spans); the
+                       Chrome trace and the ``.prom`` / ``.metrics.json``
+                       exports pass ``repro_torch.telemetry.check``; the hop
+                       ledger is exact (``cell_hops_total`` = the offered
+                       hops); the ``serve_done`` line's fields are printed.
+9. ``cell_kwt_1``      KWT-1 at full width and depth in a ``ServeCell`` of
+                       64 slots of seeded event streams, under ``cuda`` +
+                       ``xla`` and ``cuda`` + ``flash_lut``: joint,
+                       pipelined (featurise on a side CUDA stream, encode on
+                       the current one) and feature-ingest lanes on the same
+                       chunks give events and scores ``np.array_equal``; a
+                       packed artifact published mid-stream to the watch
+                       directory is installed by ``maybe_swap`` (generation
+                       + 1, exact hop ledger); one lane evicted and
+                       re-joined comes back zeroed; a corrupted artifact
+                       raises ``SwapRejected``, raises ``swap_failures`` by
+                       one, leaves the old engine serving and makes the
+                       flight recorder write one ``swap_failure`` dump;
+                       ``compile_model(taps=True)`` serves logits
+                       ``torch.equal`` to the untapped plan, every tap
+                       finite; p50 ms per hop and the real-time factor of the
+                       joint and the pipelined lanes; 20 more joint and
+                       pipelined hops under ``torch.profiler`` (the card's
+                       busy share; their launches count as lane hops).
+10. ``train_kwt_tiny`` quantisation-aware training through the launcher,
                        ``repro_torch.launch.train.main``, under
                        ``--qat-backend cuda`` (the LUT softmax and GELU
                        kernels in every training forward, behind their
@@ -78,7 +110,7 @@ quickest proof that the port still builds and starts there:
                        the non-executing ``lut`` engine, the ``cuda`` plan
                        within 0.35 of it, and the artifact read back from
                        disk deploys bit-identically on that plan.
-9. ``train_kwt_1``     KWT-1 (12 layers, 40x98, 35 classes) trained the same
+11. ``train_kwt_1``    KWT-1 (12 layers, 40x98, 35 classes) trained the same
                        way for 10 steps.
    In both: the STE Functions at the step's own shapes (forward
    ``torch.equal`` to the plain version, input gradient ``torch.equal`` to
@@ -88,11 +120,13 @@ quickest proof that the port still builds and starts there:
    ``torch.equal``); p50 ms per QAT step and ATen ops per step, the
    student alone and (KWT-Tiny) with the teacher.
 
-The serve phases (4, 5), the stream phases (6, 7) and the train phases
-(8, 9) are the main paths: the counters go to 0 just before each group and
-are read just after it; the launches of the stream phases' check forwards
-and of the train phases' checks are taken out of their paths' counts,
-which must then equal what the steps and runs launched.  Every path's
+The serve phases (4, 5), the stream phases (6, 7), the cell phases (8, 9)
+and the train phases (10, 11) are the main paths: the counters go to 0
+just before each group and are read just after it; the launches of the
+stream phases' check forwards, of the cell phase's checks (hot-swap's warm
+and probe forwards, the refused artifact's, the taps plan's) and of the
+train phases' checks are taken out of their paths' counts, which must then
+equal what the steps, hops and runs launched.  Every path's
 count must equal what that path is expected to launch (the train path
 launches the softmax and the GELU ``n_layers`` times a step and neither
 the matmul nor the attention), and every kernel must be launched by some
@@ -124,6 +158,7 @@ elementwise float32/int32 work and the attention's float32 products,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import io
 import json
@@ -141,7 +176,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import convert, qat, runtime  # noqa: E402
+from repro_torch import cell as cellmod  # noqa: E402
+from repro_torch import convert, qat, runtime, telemetry  # noqa: E402
+from repro_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core import approx, quant  # noqa: E402
@@ -149,12 +186,15 @@ from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import stream_serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import kwt  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.qat import train as qat_train  # noqa: E402
+from repro_torch.stream import detector  # noqa: E402
 from repro_torch.stream import engine as stream  # noqa: E402
 from repro_torch.stream import features  # noqa: E402
+from repro_torch.telemetry import check as telemetry_check  # noqa: E402
 
 qat_export = importlib.import_module("repro_torch.qat.export")
 
@@ -1002,6 +1042,11 @@ def phase_stream(name: str, dev, lanes: int, hops: int, reset_at: int) -> dict:
             raise AssertionError(f"lane {RESET_LANE} did not re-warm")
         off = features.mfcc(audio, fcfg)[..., -t:]
         frames = stream.window_mfcc(state)
+        frames_err = max_abs_err(frames, off)
+        if not torch.equal(frames, off):
+            raise AssertionError(
+                f"{cfg.name} {attention}: streaming MFCC frames differ from "
+                f"the offline ones by {frames_err}")
         out["plans"].append({
             "attention": attention, "describe": eng.describe(),
             "steps": step, "first_warm_hop": first_warm,
@@ -1011,9 +1056,8 @@ def phase_stream(name: str, dev, lanes: int, hops: int, reset_at: int) -> dict:
             "p50_ms_by_chunk": {k: statistics.median(
                 [m for m, kk in zip(lat, ks) if kk == k]) for k in STREAM_CHUNKS},
             "launches_per_step": per_hop,
-            "frames_vs_offline_mfcc": {
-                "max_abs": max_abs_err(frames, off),
-                "equal": bool(torch.equal(frames, off))}})
+            "frames_vs_offline_mfcc": {"max_abs": frames_err,
+                                       "equal": True}})
     out["launches"] = steps_rose
     out["check_forward_launches"] = checks_rose
     emit(out)
@@ -1021,7 +1065,335 @@ def phase_stream(name: str, dev, lanes: int, hops: int, reset_at: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 8 + 9: the train path
+# phases 8 + 9: the always-on server (the serving cell)
+# ---------------------------------------------------------------------------
+
+CELL_TINY_ARGS = ["--arch", "kwt-tiny", "--backend", "cuda", "--streams", "24",
+                  "--slots", "8", "--hops", "60", "--chunk-hops", "1",
+                  "--train-steps", "20", "--degrade-queue", "8",
+                  "--degrade-chunk-hops", "2", "--seed", "0"]
+CELL_KWT1_SLOTS = 64
+CELL_KWT1_HOPS = 120          # > 98 frames of window + 5 of smoothing
+CELL_KWT1_SWAP_AT, CELL_KWT1_RESET_AT = 40, 70
+CELL_RESET_LANE = 5
+# the keyword class is one of 35: on random weights its smoothed posterior
+# stays between 0.003 and 0.037 (measured on the card, PERF.md), so the
+# detector fires at 0.005 and releases below 0.004
+CELL_KWT1_DETECTOR = dict(smooth_hops=5, on_threshold=0.005,
+                          off_threshold=0.004, refractory_hops=10)
+
+
+def run_serve(argv: list) -> tuple:
+    """``launch.stream_serve.main(argv)`` with its log lines kept out of
+    this script's output (they are returned)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fired = stream_serve.main(argv)
+    return fired, buf.getvalue()
+
+
+def log_fields(log: str, event: str) -> dict:
+    """The ``key=value`` fields of the last ``event=<event>`` log line."""
+    line = [ln for ln in log.splitlines() if ln.startswith(f"event={event} ")][-1]
+    return dict(p.split("=", 1) for p in line.split()[2:])
+
+
+def phase_cell_kwt_tiny(dev, tmp: str) -> tuple:
+    """KWT-Tiny served by the launcher, ``repro_torch.launch.stream_serve``,
+    under ``--backend cuda``: 24 streams on 8 slots, the degrade stage on,
+    tracing on.  The artifacts must pass the port's validators, the hop
+    ledger must be exact, and the cell's launches must be one hop's worth
+    per engine step.  Returns the line, the launches and the expected."""
+    cfg = registry.get("kwt-tiny").smoke
+    trace = os.path.join(tmp, "cell_kwt_tiny.json")
+    argv = CELL_TINY_ARGS + ["--telemetry-out", trace]
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    fired, log = run_serve(argv)
+    seconds = time.perf_counter() - t0
+    path = _rise(before)
+    done = log_fields(log, "serve_done")
+    checked = telemetry_check.check_artifacts(trace, require_metrics=True)
+    metrics = json.loads(Path(trace).with_suffix(".metrics.json").read_text())
+    hops_total = metrics["cell_hops_total"]["value"]
+    if not (int(done["ingested_hops"]) == int(done["offered_hops"])
+            == hops_total) or metrics["cell_dropped_hops_total"]["value"]:
+        raise AssertionError(f"hop ledger: ingested {done['ingested_hops']}, "
+                             f"offered {done['offered_hops']}, counter "
+                             f"{hops_total}")
+    steps_run = metrics["cell_hop_latency_ms"]["summary"]["n"]
+    expected = expected_launches(cfg, steps_run)
+    if path != expected:
+        raise AssertionError(f"the launcher's cell launched {path}, expected "
+                             f"{expected} ({steps_run} engine steps)")
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    spans = {(e["name"], e.get("args", {}).get("parent")) for e in events}
+    if not {("stream_step", "hop"), ("hop", "stream_step")} <= spans:
+        raise AssertionError(f"no Engine.stream_step spans in the trace: {spans}")
+    degraded = metrics["cell_admission_total"]
+    out = {"phase": "cell_kwt_tiny", "model": cfg.name, "argv": argv,
+           "seconds": seconds, "artifacts": checked, "engine_steps": steps_run,
+           "serve_done": done, "fired": len(fired),
+           "admission": degraded, "launches": path,
+           "launches_per_step": expected_launches(cfg, 1),
+           "p50_hop_ms": float(done["p50_ms"]),
+           "rtf_p50_one_hop": float(done["p50_ms"]) / 10.0}
+    emit(out)
+    return path, expected
+
+
+def _cell_chunks(n_lanes: int, hops: int, hop: int) -> np.ndarray:
+    """[hops, lanes, hop] host chunks of seeded keyword event streams."""
+    audio = np.stack([pipeline.keyword_event_stream(1, lane, n_hops=hops,
+                                                    hop_len=hop)[0]
+                      for lane in range(n_lanes)])
+    return np.ascontiguousarray(audio.reshape(n_lanes, hops, hop)
+                                .transpose(1, 0, 2))
+
+
+def _zeroed_lane(lanes, lane: int) -> bool:
+    d, s = lanes.dstate, lanes.state
+    return (int(d["hist"]["count"][lane]) == 0 and not bool(d["active"][lane])
+            and int(d["cooldown"][lane]) == 0 and int(d["warm_hops"][lane]) == 0
+            and int(s["embed"]["count"][lane]) == 0
+            and not bool(s["frontend"]["tail"][lane].any()))
+
+
+def cell_kwt1_plan(dev, cfg, np_tree, np_tree2, attention: str, tmp: str):
+    """One attention realisation of ``cell_kwt_1``.  Returns the plan's line,
+    the launches of its lane hops and those of its checks."""
+    fcfg = stream_serve.frontend_for(cfg)
+    dcfg = detector.DetectorConfig(**CELL_KWT1_DETECTOR)
+    per_hop = expected_launches(cfg, 1, attention)
+    eng = runtime.compile_model(cfg, convert.from_numpy_tree(np_tree, dev),
+                                backend="cuda", attention=attention, device=dev)
+    watch = os.path.join(tmp, f"watch_{attention}")
+    probe = np.random.RandomState(3).normal(
+        0, 0.5, (1, *cfg.input_dim)).astype(np.float32)
+    cell = cellmod.ServeCell(
+        eng, slots=CELL_KWT1_SLOTS, registry=telemetry.Registry(),
+        watch_dir=watch, watch_like=eng.params, probe=probe,
+        flight=telemetry.FlightConfig(dump_dir=os.path.join(
+            tmp, f"flight_{attention}")))
+    chunks = _cell_chunks(CELL_KWT1_SLOTS, CELL_KWT1_HOPS, fcfg.hop_len)
+    lanes_rose = dict.fromkeys(ops.launch_counts(), 0)
+    checks_rose = dict(lanes_rose)
+
+    def count(into, before):
+        for k, v in _rise(before).items():
+            into[k] += v
+
+    with cell:
+        joint = cell.stream_lanes(fcfg, dcfg)
+        piped = cell.stream_lanes(fcfg, dcfg, pipelined=True)
+        ingest = cell.stream_lanes(fcfg, dcfg, feature_ingest=True)
+        for lanes in (joint, piped, ingest):
+            for lane in range(CELL_KWT1_SLOTS):
+                lanes.join(lane)
+        edge = features.frontend_init(fcfg, CELL_KWT1_SLOTS, device=dev)
+        ev = {"joint": [], "pipelined": [], "ingest": []}
+        ms = {"joint": [], "pipelined": []}
+        bounds = (0, CELL_KWT1_SWAP_AT, CELL_KWT1_RESET_AT, CELL_KWT1_HOPS)
+        gen0 = cell.handle.generation
+        for seg in range(3):
+            lo, hi = bounds[seg], bounds[seg + 1]
+            if seg == 1:          # a packed artifact published mid-stream
+                packed = runtime.QuantRecipe.from_config(cfg).quantize(
+                    convert.from_numpy_tree(np_tree2, dev))
+                ckpt_manager.save(watch, 1, packed)
+                before = ops.launch_counts()
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    swapped = cell.maybe_swap()
+                if not swapped:
+                    raise AssertionError("maybe_swap did not install the "
+                                         "published artifact")
+                count(checks_rose, before)
+                gate_err = float(log_fields(buf.getvalue(), "hot_swap")
+                                 ["probe_err"])
+            if seg == 2:          # one lane evicted and re-joined
+                for lanes in (joint, piped, ingest):
+                    lanes.evict(CELL_RESET_LANE)
+                    lanes.join(CELL_RESET_LANE)
+                    if not _zeroed_lane(lanes, CELL_RESET_LANE):
+                        raise AssertionError("a re-joined lane kept state")
+                tail = edge["tail"].clone()
+                tail[CELL_RESET_LANE] = 0.0
+                edge = {"tail": tail}
+            before = ops.launch_counts()
+            for h in range(lo, hi):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev["joint"].append(joint.hop(chunks[h]))
+                ms["joint"].append((time.perf_counter() - t0) * 1e3)
+                with torch.inference_mode():
+                    edge, frames = features.frontend_push(
+                        edge, torch.from_numpy(chunks[h]).to(dev), fcfg)
+                ev["ingest"].append(ingest.hop(frames))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for e in piped.run(chunks[lo:hi]):
+                ev["pipelined"].append(e)
+                t1 = time.perf_counter()
+                ms["pipelined"].append((t1 - t0) * 1e3)
+                t0 = t1
+            count(lanes_rose, before)
+        if cell.handle.generation != gen0 + 1:
+            raise AssertionError(f"generation {cell.handle.generation}, "
+                                 f"expected {gen0 + 1}")
+        for mode in ("pipelined", "ingest"):
+            for h, (a, b) in enumerate(zip(ev["joint"], ev[mode])):
+                for key in ("fired", "score"):
+                    if not np.array_equal(a[key], b[key]):
+                        raise AssertionError(
+                            f"{attention} hop {h}: {mode} lanes' {key} differ "
+                            f"from the joint lanes' by "
+                            f"{np.abs(a[key] - b[key]).max()}")
+        m = cell.metrics
+        want_hops = 3 * CELL_KWT1_HOPS * CELL_KWT1_SLOTS
+        ledger = m.hops.value
+        if ledger != want_hops or m.dropped_hops.value:
+            raise AssertionError(f"hop ledger {ledger}, expected {want_hops}")
+        # where a hop's time goes: the card's busy share under the profiler
+        # (lane hops too: their launches count on the lane side)
+        before = ops.launch_counts()
+        window = chunks[:PROFILED_HOPS]
+        profiled = {
+            "joint": profile_hops(lambda: [joint.hop(c) for c in window]),
+            "pipelined": profile_hops(lambda: list(piped.run(window)))}
+        count(lanes_rose, before)
+        # a corrupted artifact fails closed
+        serving, failures = cell.engine, m.swap_failures.value
+        bad = tree_map(lambda leaf: dataclasses.replace(
+            leaf, exponent=leaf.exponent - 10)
+            if isinstance(leaf, quant.QTensor) else leaf,
+            runtime.QuantRecipe.from_config(cfg).quantize(
+                convert.from_numpy_tree(np_tree2, dev)))
+        before = ops.launch_counts()
+        try:
+            cellmod.hot_swap(cell.handle, bad, probe, metrics=m)
+        except cellmod.SwapRejected:
+            pass
+        else:
+            raise AssertionError("the corrupted artifact was installed")
+        count(checks_rose, before)
+        cell.flight.check()
+        dumps = [json.loads(Path(d).read_text())["reason"]
+                 for d in cell.flight.dumps]
+        if m.swap_failures.value != failures + 1 or cell.engine is not serving \
+                or dumps != ["swap_failure"]:
+            raise AssertionError(f"corrupted artifact: swap_failures "
+                                 f"{m.swap_failures.value}, dumps {dumps}")
+        # taps on the cuda plan: the served logits are the untapped plan's
+        x = np.random.RandomState(4).normal(
+            0, 0.5, (CELL_KWT1_SLOTS, *cfg.input_dim)).astype(np.float32)
+        before = ops.launch_counts()
+        tapped = runtime.compile_model(
+            cfg, convert.from_numpy_tree(np_tree, dev), backend="cuda",
+            attention=attention, taps=True, device=dev)
+        logits, aux = tapped.forward(x)
+        require_equal(f"{attention} taps plan logits vs untapped",
+                      logits, eng.forward(x))
+        bad_taps = [f"{site}/{k}" for site, st in aux.items()
+                    for k, v in st.items() if not bool(torch.isfinite(v))]
+        if bad_taps or "block11/gelu" not in aux:
+            raise AssertionError(f"taps: non-finite {bad_taps}, sites {list(aux)}")
+        count(checks_rose, before)
+    lane_hops = 3 * CELL_KWT1_HOPS + 2 * PROFILED_HOPS
+    expected = {k: lane_hops * per_hop[k] for k in per_hop}
+    if lanes_rose != expected:
+        raise AssertionError(f"{attention}: the lanes launched {lanes_rose}, "
+                             f"expected {expected}")
+    hop_ms = 1e3 * fcfg.hop_len / fcfg.sample_rate
+    line = {"attention": attention, "describe": eng.describe(),
+            "hops": CELL_KWT1_HOPS, "lanes": CELL_KWT1_SLOTS,
+            "lane_hops_launched": lane_hops,
+            "modes_equal": ["joint", "pipelined (two streams)",
+                            "feature ingest"],
+            "generation": cell.handle.generation, "ledger_hops": ledger,
+            "swap_ms": m.swap_ms.summary(), "swap_gate_err": gate_err,
+            "swap_gate_tol": cellmod.hotswap._INT_EXEC_PROBE_TOL,
+            "swap_failures": m.swap_failures.value,
+            "flight_dumps": dumps, "taps_sites": len(aux),
+            "fired": int(sum(e["fired"].sum() for e in ev["joint"])),
+            "score_range": [float(min(e["score"].min() for e in ev["joint"])),
+                            float(max(e["score"].max() for e in ev["joint"]))],
+            "p50_hop_ms": {k: statistics.median(v) for k, v in ms.items()},
+            "p50_rtf": {k: statistics.median(v) / hop_ms for k, v in ms.items()},
+            "cell_hop_latency_ms": m.hop_ms.summary(),
+            "profiled": profiled,
+            "launches_per_hop": per_hop, "launches": lanes_rose,
+            "check_launches": checks_rose}
+    return line, lanes_rose, checks_rose, expected
+
+
+PROFILED_HOPS = 20
+
+
+def profile_hops(run_hops) -> dict:
+    """``run_hops()`` under ``torch.profiler``: wall ms per hop, the
+    kernels' device time per hop, and the share of the window in which the
+    card ran a kernel (the union of the kernel intervals of the profiler's
+    Chrome trace over the wall time; the profiler's own host cost is in
+    the wall time, so the busy share without it is at least this)."""
+    from torch.profiler import ProfilerActivity, profile
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_hops()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events
+                   if e.get("cat") == "kernel" and e.get("ph") == "X")
+    if not spans:
+        return {"device_busy_share": "not measured (no kernel events)"}
+    busy, end = 0.0, -1.0
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return {"hops": PROFILED_HOPS, "wall_ms_per_hop": wall_us / 1e3 / PROFILED_HOPS,
+            "kernel_ms_per_hop": sum(hi - lo for lo, hi in spans) / 1e3
+            / PROFILED_HOPS, "kernels_per_hop": len(spans) / PROFILED_HOPS,
+            "device_busy_share": busy / wall_us}
+
+
+def phase_cell_kwt_1(dev, tmp: str) -> tuple:
+    """KWT-1 at full width and depth served by ``ServeCell`` directly (the
+    launcher serves the smoke configs), 64 slots of seeded event streams,
+    under ``cuda`` + ``xla`` and ``cuda`` + ``flash_lut``: joint, pipelined
+    (two CUDA streams) and feature-ingest lanes on the same chunks give the
+    same events and scores bit for bit; a packed artifact published mid-
+    stream is hot-swapped in with an exact hop ledger; a lane evicted and
+    re-joined comes back zeroed; a corrupted artifact is refused with one
+    flight dump; the taps plan serves the untapped logits."""
+    cfg = registry.get("kwt-1").config
+    np_tree, np_tree2 = seeded_params(cfg, 0, dev), seeded_params(cfg, 1, dev)
+    out = {"phase": "cell_kwt_1", "model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "plans": []}
+    lanes = dict.fromkeys(ops.launch_counts(), 0)
+    checks, expected = dict(lanes), dict(lanes)
+    for attention in ("xla", "flash_lut"):
+        line, rose, chk, exp = cell_kwt1_plan(dev, cfg, np_tree, np_tree2,
+                                              attention, tmp)
+        out["plans"].append(line)
+        for k in lanes:
+            lanes[k] += rose[k]
+            checks[k] += chk[k]
+            expected[k] += exp[k]
+    out["launches"], out["check_launches"] = lanes, checks
+    emit(out)
+    return lanes, checks, expected
+
+
+# ---------------------------------------------------------------------------
+# phases 10 + 11: the train path
 # ---------------------------------------------------------------------------
 
 TRAIN_TINY_ARGS = ["--arch", "kwt-tiny", "--qat", "--qat-backend", "cuda",
@@ -1428,6 +1800,22 @@ def main() -> None:
     if launches["stream"] != steps_rose:
         raise AssertionError(f"stream launches {launches['stream']} are not "
                              f"those of its steps, {steps_rose}")
+    # the cell path: the lanes' hops (the launcher's, and the KWT-1 cell's
+    # three lane sets and its profiled joint and pipelined hops), less the launches of the KWT-1 phase's checks
+    # (hot-swap's warm and probe forwards, the refused artifact's, the taps
+    # plan's and its untapped comparison)
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cell_",
+                                     dir=build.build_dir()) as tmp:
+        tiny_rose, tiny_expected = phase_cell_kwt_tiny(dev, tmp)
+        k1_rose, k1_checks, k1_expected = phase_cell_kwt_1(dev, tmp)
+    counted = ops.launch_counts()
+    launches["cell"] = {n: counted[n] - k1_checks[n] for n in counted}
+    expected["cell"] = {n: tiny_expected[n] + k1_expected[n] for n in counted}
+    lanes_rose = {n: tiny_rose[n] + k1_rose[n] for n in counted}
+    if launches["cell"] != lanes_rose:
+        raise AssertionError(f"cell launches {launches['cell']} are not those "
+                             f"of its hops, {lanes_rose}")
     # the train path: the launcher's runs, less the launches of the checks
     # each train phase makes after them
     ops.reset_launch_counts()

@@ -29,9 +29,12 @@ loss.  The Function is used only where a gradient is asked for
 ``torch.inference_mode()`` or ``torch.no_grad()`` — every serving path —
 the pipeline runs as it is, saves nothing and dispatches no extra op.
 
-Not ported yet: the reference's SiLU / softplus / squared-ReLU family
-(ROADMAP queue A item 8), its bf16 softmax branch and the
-quantisation-health taps (item 7).
+The dispatchers also emit the quantisation-health taps
+(``telemetry.taps``): one module-global check, nothing else, unless an
+Engine's taps pass is collecting.
+
+Not ported yet: the reference's SiLU / softplus / squared-ReLU family and
+its bf16 softmax branch (ROADMAP queue A item 3, the LM families).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.core import lut as lutlib
+from repro_torch.telemetry import taps as _health
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +200,10 @@ def softmax_lut(x: torch.Tensor, axis: int = -1, *, fixed: bool = False,
 
 def softmax(x: torch.Tensor, axis: int = -1, mode: str = "exact",
             **kw) -> torch.Tensor:
+    # quantisation-health tap (telemetry.taps): a no-op unless an Engine
+    # taps pass is collecting
+    if _health.active() and axis in (-1, x.ndim - 1):
+        _health.tap_softmax(x, None, fixed=mode in ("lut_fixed", "cuda"))
     if mode == "exact":
         return softmax_exact(x, axis)
     if mode in ("lut", "lut_fixed"):
@@ -275,6 +283,8 @@ def masked_softmax(s: torch.Tensor, mask: torch.Tensor | None,
     Rows that are fully masked return zeros.  The non-exact modes are
     STEs whose backward is the exact masked softmax's gradient.
     """
+    if _health.active():   # health tap; see softmax()
+        _health.tap_softmax(s, mask, fixed=mode in ("lut_fixed", "cuda"))
     s = s.to(torch.float32)
     if mode == "exact":
         return _masked_exact(s, mask)
@@ -325,6 +335,8 @@ def _gelu_kernel(x: torch.Tensor) -> torch.Tensor:
 
 
 def gelu(x: torch.Tensor, mode: str = "exact", **kw) -> torch.Tensor:
+    if _health.active():   # health tap; see softmax()
+        _health.tap_gelu(x)
     if mode == "exact":
         return gelu_exact(x)
     if mode in ("lut", "lut_interp"):
@@ -345,5 +357,5 @@ def activation(name: str, mode: str = "exact"):
     if name in ("silu", "sqrelu", "relu"):
         raise NotImplementedError(
             f"activation {name!r} serves the LM families, ROADMAP queue A "
-            "item 8, not ported yet")
+            "item 3, not ported yet")
     raise ValueError(f"unknown activation {name!r}")

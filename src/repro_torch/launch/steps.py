@@ -7,7 +7,7 @@ the loss forward records a graph, ``torch.autograd.grad`` takes the
 gradients of every parameter leaf, and ``optim.adamw.update`` writes new
 tensors.  Microbatches accumulate float32 gradients in a loop.  The
 mesh-sharded LM steps, their input / sharding specs and the compressed
-gradient sync wait for ROADMAP queue A items 8 and 9.
+gradient sync wait for ROADMAP queue A items 3 and 4.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def not_ported(what: str, item: str):
 
 def hparams_for(cfg: ModelConfig) -> adamw.HParams:
     """float32 moments: the reference gives int8 moments only to LM
-    configs, which come with ROADMAP queue A item 8."""
+    configs, which come with ROADMAP queue A item 3."""
     return adamw.HParams()
 
 
@@ -126,10 +126,10 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, hp=None, n_micro=None,
     qstate, batch) -> (params, opt_state, qstate, metrics)``.
 
     ``sync_mesh`` (the compressed gradient sync) raises
-    ``NotImplementedError``: ROADMAP queue A item 9.
+    ``NotImplementedError``: ROADMAP queue A item 4.
     """
     if sync_mesh is not None:
-        not_ported("sync_mesh (compressed gradient sync)", "item 9 (dist)")
+        not_ported("sync_mesh (compressed gradient sync)", "item 4 (dist)")
     if qat is not None:
         from repro_torch.qat import train as qat_train
         return qat_train.make_qat_train_step(cfg, shape, hp=hp,

@@ -22,7 +22,7 @@ Usage (the card by default; the CPU only with ``--device cpu``)::
       --distill-teacher-arch kwt-1 --steps 200 --ckpt-dir /tmp/ckpt
 
 The mesh flags (``--data``/``--model`` above 1), ``--compressed-grads``
-and the LM families wait for ROADMAP queue A items 8 and 9.
+and the LM families wait for ROADMAP queue A items 3 and 4.
 """
 
 from __future__ import annotations
@@ -190,13 +190,13 @@ def _restore(args, params, opt_state, qstate):
 def main(argv=None) -> TrainResult:
     args = _parser().parse_args(argv)
     if args.data * args.model != 1:
-        steps.not_ported("a device mesh (--data/--model)", "item 9 (dist)")
+        steps.not_ported("a device mesh (--data/--model)", "item 4 (dist)")
     if args.compressed_grads:
-        steps.not_ported("--compressed-grads", "item 9 (dist)")
+        steps.not_ported("--compressed-grads", "item 4 (dist)")
     cfg = registry.get(args.arch).config
     if cfg.family != "kwt":
         steps.not_ported(f"training family {cfg.family!r}",
-                         "item 8 (LM families)")
+                         "item 3 (LM families)")
     if args.distill_teacher_arch and not args.qat:
         raise ValueError("--distill-teacher-arch is the KD path of --qat")
     device = resolve_device(args.device)

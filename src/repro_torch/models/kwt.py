@@ -21,6 +21,7 @@ from repro_torch.core.rowwise import rowwise_matmul
 from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.telemetry import taps as _health
 
 
 def seqlen(cfg) -> int:
@@ -83,12 +84,16 @@ def encode_window(params, x, cfg):
     # it is consumed additively, so integer-resident trees dequantise it
     # here (the same po2 de-scale a plan-time dequant would apply).
     x = torch.cat([cls, x], dim=1) + L.asfloat(params["pos"])
-    for bp in params["blocks"]:
-        # post-norm residual blocks (paper §II eqs 1-6), full attention
-        a, _ = L.apply_attention(bp["attn"], x, cfg, causal=False)
-        x = L.apply_norm(bp["ln1"], x + a, cfg)
-        f = L.apply_mlp(bp["mlp"], x, cfg)
-        x = L.apply_norm(bp["ln2"], x + f, cfg)
+    _health.tap_activation("embed", x, cfg)
+    for i, bp in enumerate(params["blocks"]):
+        # post-norm residual blocks (paper §II eqs 1-6), full attention;
+        # taps.scope names this block's health stats (block0/softmax ...)
+        with _health.scope(f"block{i}"):
+            a, _ = L.apply_attention(bp["attn"], x, cfg, causal=False)
+            x = L.apply_norm(bp["ln1"], x + a, cfg)
+            f = L.apply_mlp(bp["mlp"], x, cfg)
+            x = L.apply_norm(bp["ln2"], x + f, cfg)
+            _health.tap_activation("block_out", x, cfg)
     return (L.linear(x[:, 0], params["head_w"], "bd,dc->bc", cfg)
             + params["head_b"]).to(torch.float32)
 

@@ -12,9 +12,11 @@ Cacheless attention runs either the plain einsum path (``sdpa``,
 (``attn_impl == "flash_lut"``): the hand-written kernel on the ``cuda``
 plan, its plain version on every other plan.
 
-Waiting for ROADMAP queue A item 8 (LM families): RMSNorm, RoPE, qk-norm, GQA KV
-caches, sliding windows, query-chunked attention, gated MLPs and the
-quantisation-health taps.
+``apply_attention`` and ``apply_mlp`` emit the quantisation-health taps
+of their inputs (``telemetry.taps``; a no-op without a collector).
+
+Waiting for ROADMAP queue A item 3 (LM families): RMSNorm, RoPE, qk-norm,
+GQA KV caches, sliding windows, query-chunked attention and gated MLPs.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ import torch
 
 from repro_torch.core import approx
 from repro_torch.core import quant
+from repro_torch.telemetry import taps as _health
 
-_LATER = "is not ported yet: it waits for ROADMAP queue A item 8 (LM families)"
+_LATER = "is not ported yet: it waits for ROADMAP queue A item 3 (LM families)"
 
 
 def executes_int(w, eq: str, cfg) -> bool:
@@ -164,6 +167,7 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     b, sq, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    _health.tap_activation("attn_in", x, cfg)
     wq, wk, wv = p["wq"], p["wk"], p["wv"]
     if (cfg.int_exec and cfg.act_approx != "cuda"
             and all(isinstance(w, quant.QTensor)
@@ -233,6 +237,7 @@ def mlp_params(cfg, generator, d_ff=None, device="cpu"):
 def apply_mlp(p, x, cfg):
     if cfg.gated_mlp:
         raise NotImplementedError(f"gated MLP {_LATER}")
+    _health.tap_activation("mlp_in", x, cfg)
     act = approx.activation(cfg.activation, cfg.act_approx)
     h = linear(x, p["w1"], "bsd,df->bsf", cfg)
     if "b1" in p:

@@ -21,7 +21,7 @@ freeze are ``torch.where``s on the device, as in the reference.
 Knobs (QATConfig): delayed start, exponent learning with a freeze step,
 optional eq-9 input fake-quant, and optional distillation
 (``qat.distill``) from a float teacher.  Composition with the compressed
-gradient sync waits for ROADMAP queue A item 9.
+gradient sync waits for ROADMAP queue A item 4.
 """
 
 from __future__ import annotations

@@ -17,6 +17,16 @@ plan, so the reference's jitted programs, its flat-leaf dispatch and its
 separate unpack executable have no counterpart here.  Capturing the
 fixed-shape forward in a CUDA graph is a follow-up.
 
+Telemetry: under an active ``telemetry`` tracer, ``forward`` and
+``stream_step`` record the reference's spans (``forward`` / ``unpack`` /
+``encode`` / ``taps``, ``stream_step`` / ``unpack`` / ``hop``), each
+fenced with ``torch.cuda.synchronize`` of the engine's device so that a
+span measures the device work; with no tracer the path is the untraced
+one, with no synchronize.  ``compile_model(taps=True)`` plans the
+quantisation-health aux (``telemetry.taps``): a second, tapped pass whose
+statistics ``forward`` returns beside the logits of the untapped pass.
+:class:`EngineHandle` is the swap-safe reference a serving cell holds.
+
 Device rule: ``device=None`` means the card and raises where there is
 none; the CPU is used only when the caller passes ``device="cpu"``.  The
 ``cuda`` backend needs a CUDA device.
@@ -29,6 +39,7 @@ tolerance, and the f32-container integer products rely on exact float32.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Optional
 
 import torch
@@ -39,6 +50,8 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.runtime.backends import Backend, get_backend
 from repro_torch.runtime.recipe import QuantRecipe
+from repro_torch.telemetry import taps as _taps
+from repro_torch.telemetry import trace as _trace
 
 Pytree = Any
 
@@ -49,7 +62,7 @@ def _model_module(cfg):
         return kwt
     raise NotImplementedError(
         f"family={cfg.family!r} is not ported yet: the LM families wait for "
-        "ROADMAP queue A item 8")
+        "ROADMAP queue A item 3")
 
 
 def _tree_bytes(tree) -> int:
@@ -77,6 +90,7 @@ class Engine:
     recipe: Optional[QuantRecipe]
     device: torch.device
     quantized_bytes: Optional[tuple] = None   # (int bytes, float bytes)
+    taps: bool = False              # forward also returns quant-health aux
     int_exec: bool = False          # integer-executing plan: the model
     #                                 consumes the packed tree directly
 
@@ -99,13 +113,67 @@ class Engine:
     def _input(self, x):
         return torch.as_tensor(x).to(self.device)
 
+    def _fence(self):
+        """Wait for the device work queued so far (inside spans only)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     # -- inference entry points --------------------------------------------
 
     def forward(self, x):
-        """Offline forward: mfcc [B,F,T] -> logits [B,n_classes]."""
+        """Offline forward: mfcc [B,F,T] -> logits [B,n_classes].
+
+        With ``taps`` planned (``compile_model(..., taps=True)``) returns
+        ``(logits, aux)`` where ``aux`` maps tap sites to quantisation-
+        health scalars (telemetry.taps).  The logits come from the
+        untapped pass either way."""
+        tr = _trace.active_tracer()
+        if tr is None and not self.taps:
+            with torch.inference_mode():
+                return self._mod.forward(self.live_params(), self._input(x),
+                                         self.exec_cfg)
+        return self._forward_instrumented(tr, x)
+
+    def _live_traced(self, tr):
+        """Operand tree under tracing.  Plans with no unpack stage — float
+        params, or integer-EXECUTING packed params — emit no ``unpack``
+        span: there is no such stage to attribute."""
+        if not (self.int_resident and not self.int_exec):
+            return self.params
+        with tr.span("unpack"):
+            lp = self.live_params()
+            self._fence()
+            return lp
+
+    def _forward_instrumented(self, tr, x):
+        cfg = self.exec_cfg
         with torch.inference_mode():
-            return self._mod.forward(self.live_params(), self._input(x),
-                                     self.exec_cfg)
+            if tr is None:                         # taps only, no tracing
+                lp, x = self.live_params(), self._input(x)
+                return self._mod.forward(lp, x, cfg), self._run_taps(lp, x)
+            # Spans measure device work: each stage is fenced with a
+            # synchronize of the engine's device (only while tracing).
+            with tr.span("forward", {"backend": self.backend.name}):
+                lp = self._live_traced(tr)
+                with tr.span("encode"):
+                    x = self._input(x)
+                    logits = self._mod.forward(lp, x, cfg)
+                    self._fence()
+                if self.taps:
+                    with tr.span("taps"):
+                        aux = self._run_taps(lp, x)
+                        self._fence()
+                    return logits, aux
+            return logits
+
+    def _run_taps(self, lp, x):
+        """The aux pass of a ``taps=True`` plan: the forward again, with
+        the telemetry.taps collector active, returning ONLY the health
+        statistics; served logits never come from this pass."""
+        with _taps.collecting() as col:
+            logits = self._mod.forward(lp, x, self.exec_cfg)
+            _taps.tap_activation("logits", logits, self.exec_cfg)
+        return _taps.pack(col)
 
     def embed_frames(self, frames):
         """[B, t, F] time-major frames -> [B, t, d] patch embeddings."""
@@ -126,19 +194,28 @@ class Engine:
         on this engine's device; ``chunk`` may be numpy or a tensor
         anywhere and is moved there."""
         from repro_torch.stream import engine as stream_engine
-        with torch.inference_mode():
-            return stream_engine.stream_step(
-                self.live_params(), state, self._input(chunk), self.exec_cfg,
-                fcfg)
+        tr = _trace.active_tracer()
+        if tr is None:
+            with torch.inference_mode():
+                return stream_engine.stream_step(
+                    self.live_params(), state, self._input(chunk),
+                    self.exec_cfg, fcfg)
+        with tr.span("stream_step", {"backend": self.backend.name}):
+            lp = self._live_traced(tr)
+            with tr.span("hop"), torch.inference_mode():
+                out = stream_engine.stream_step(
+                    lp, state, self._input(chunk), self.exec_cfg, fcfg)
+                self._fence()
+                return out
 
     def init_decode_state(self, batch: int, max_len: int):
-        _later("Engine.init_decode_state", "item 8 (LM families)")
+        _later("Engine.init_decode_state", "item 3 (LM families)")
 
     def prefill(self, tokens, state):
-        _later("Engine.prefill", "item 8 (LM families)")
+        _later("Engine.prefill", "item 3 (LM families)")
 
     def decode_step(self, token, state):
-        _later("Engine.decode_step", "item 8 (LM families)")
+        _later("Engine.decode_step", "item 3 (LM families)")
 
     # -- introspection -----------------------------------------------------
 
@@ -186,6 +263,77 @@ class Engine:
                 f"{self.device}: params {self.param_bytes} B, "
                 f"rom {self.rom_bytes} B, lut {self.lut_bytes} B{q}{kern}"
                 f"{attn}")
+
+
+class EngineHandle:
+    """A swap-safe reference to the live Engine of a serving cell.
+
+    Serving loops read ``handle.engine`` each hop; ``cell.hotswap``
+    replaces the Engine atomically under the handle's lock after warming
+    and probe-parity verification.  Lane state (stream rings, detector
+    state) lives outside the Engine, so a swap changes only params — in-
+    flight lanes keep their positions and no hop is dropped.
+
+    ``swap`` enforces plan compatibility by default: the incoming Engine
+    must share the exec config (same arch dims + pinned modes), the
+    device, and a param tree of identical structure and leaf shapes,
+    compared leaf by leaf in the trees' own (insertion) order on both
+    sides.
+    """
+
+    def __init__(self, engine: Engine):
+        self._lock = threading.Lock()
+        self._engine = engine
+        self._generation = 0
+        self._live_cache = None          # (generation, operand tree)
+
+    @property
+    def engine(self) -> Engine:
+        return self._engine
+
+    @property
+    def generation(self) -> int:
+        """Bumps once per completed swap (serving loops key caches on it)."""
+        return self._generation
+
+    def live_params(self):
+        """The current Engine's operand tree, cached per generation (one
+        unpack per swap instead of one per hop for non-executing resident
+        plans; see :meth:`Engine.live_params`)."""
+        with self._lock:
+            gen, eng = self._generation, self._engine
+        cache = self._live_cache
+        if cache is not None and cache[0] == gen:
+            return cache[1]
+        with torch.inference_mode():
+            live = eng.live_params()
+        self._live_cache = (gen, live)
+        return live
+
+    def swap(self, new_engine: Engine, *, strict: bool = True) -> Engine:
+        """Install ``new_engine``; returns the Engine it replaced."""
+        if strict:
+            old = self._engine
+            if new_engine.exec_cfg != old.exec_cfg:
+                raise ValueError(
+                    "hot-swap across exec configs would change the serving "
+                    f"plan mid-traffic: {old.exec_cfg.name}/{old.backend.name}"
+                    f" -> {new_engine.exec_cfg.name}/"
+                    f"{new_engine.backend.name} (swap(strict=False) to force)")
+            if new_engine.device != old.device:
+                raise ValueError(f"hot-swap across devices: {old.device} -> "
+                                 f"{new_engine.device}")
+            old_shapes = [tuple(getattr(x, "shape", ()))
+                          for x in tree_leaves(old.params)]
+            new_shapes = [tuple(getattr(x, "shape", ()))
+                          for x in tree_leaves(new_engine.params)]
+            if old_shapes != new_shapes:
+                raise ValueError("hot-swap param tree shape mismatch")
+        with self._lock:
+            old, self._engine = self._engine, new_engine
+            self._generation += 1
+            self._live_cache = None
+        return old
 
 
 def _has_qtensors(tree) -> bool:
@@ -247,11 +395,15 @@ def compile_model(cfg, params, backend="float",
     dequantise-per-call resident plan, whose logits are bit-identical to
     dequantise-first.
 
+    ``taps=True`` plans the quantisation-health aux: ``forward`` returns
+    ``(logits, aux)`` where aux carries per-layer int8 saturation, LUT
+    out-of-domain fractions and Q8.24 headroom (telemetry.taps), from a
+    second pass; the logits are the untapped pass's, equal to a
+    ``taps=False`` plan's.
+
     ``device=None`` resolves to the CUDA device and raises when there is
     none.  The ``cuda`` backend on a CPU device raises.
     """
-    if taps:
-        _later("compile_model(taps=True)", "item 7 (telemetry)")
     be = get_backend(backend)
     device = resolve_device(device)
     if be.uses_kernels and device.type != "cuda":
@@ -290,4 +442,4 @@ def compile_model(cfg, params, backend="float",
         exec_cfg = _pin_int_exec(exec_cfg, recipe)
     return Engine(cfg=cfg, exec_cfg=exec_cfg, params=params, backend=be,
                   recipe=recipe, device=device, quantized_bytes=qbytes,
-                  int_exec=int_exec)
+                  taps=taps, int_exec=int_exec)

@@ -15,13 +15,14 @@ signal and every ``hop_len`` new samples yield exactly one new frame.
 Both paths run the same per-frame math (Hann window, ``|rfft|^2``, mel
 matmul, ``log``, orthonormal DCT-II) through :func:`_frame_features`.
 
-The FFT batches over frames; on the CPU the mel and DCT products are one
-product per frame (``core.rowwise.rowwise_matmul``), so a frame's
-features do not depend on how many other frames share the call, and
-streaming frames equal offline frames to the bit
-(``tests/test_torch_stream.py``).  cuFFT and cuBLAS may pick their
-algorithm by batch shape, so on the card that equality is measured
-(``chip_smoke.py``), not promised.
+A frame's features do not depend on how many other frames share the call
+(``core.rowwise``): on the CPU the FFT batches over frames (pocketfft
+transforms each row alike) and the mel and DCT products are one product
+per frame; on the card cuFFT and cuBLAS pick their algorithm by the shape
+of the call, so the FFT and both products run on blocks of a fixed
+number of frames (``rowwise.by_row_blocks``).  Streaming frames equal
+offline frames to the bit on either device
+(``tests/test_torch_stream.py``; ``chip_smoke.py`` on the card).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from repro_torch.core.rowwise import rowwise_matmul
+from repro_torch.core.rowwise import by_row_blocks, rowwise_matmul
 from repro_torch.device import resolve_device
 
 
@@ -113,11 +114,22 @@ def _frame_features(frames: torch.Tensor, fcfg: FrontendConfig) -> torch.Tensor:
     """
     win, fb, dct = _constants(fcfg, frames.device)
     x = frames.to(torch.float32) * win
-    spec = torch.fft.rfft(x, n=fcfg.n_fft, dim=-1)
+    spec = _per_frame(x, lambda b: torch.fft.rfft(b, n=fcfg.n_fft, dim=-1))
     power = spec.real.square() + spec.imag.square()
-    mel = rowwise_matmul(power, fb)
+    mel = _per_frame(power, lambda b: rowwise_matmul(b, fb))
     logmel = torch.log(torch.clamp(mel, min=fcfg.log_floor))
-    return rowwise_matmul(logmel, dct)
+    return _per_frame(logmel, lambda b: rowwise_matmul(b, dct))
+
+
+def _per_frame(x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(x)`` for frames ``x`` [..., K], each frame's result independent
+    of the others: on the CPU in one call (pocketfft transforms each row
+    alike; ``rowwise_matmul`` takes one product per row), on the card in
+    calls of ``CARD_ROWS`` frames (``core.rowwise.by_row_blocks``)."""
+    if x.device.type == "cpu":
+        return fn(x)
+    out = by_row_blocks(x.reshape(-1, x.shape[-1]), fn)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 def _frame(audio: torch.Tensor, fcfg: FrontendConfig) -> torch.Tensor:

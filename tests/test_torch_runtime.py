@@ -365,7 +365,11 @@ def test_later_slices_raise_not_implemented(call):
         elif call == "decode_step":
             eng.decode_step(None, None)
         else:
-            trt.compile_model(tcfg, tp, backend="lut", taps=True, device="cpu")
+            # compile_model(taps=True) is planned since the telemetry slice
+            # (tests/test_torch_telemetry.py); what that slice leaves to
+            # the LM families is the serving cell's LM lane
+            from repro_torch import cell
+            cell.ServeCell(eng, slots=1).lm_scheduler(max_len=8)
 
 
 # ---------------------------------------------------------------------------
