@@ -45,8 +45,25 @@ quickest proof that the port still builds and starts there:
    (the output laid out so that the layer's reshape is a view); bf16 must
    come out finite.  Its row carries the bytes bound beside the float32
    operations bound.
-4. ``serve_kwt_tiny``  KWT-Tiny (full width and depth) under the ``cuda``
-5. ``serve_kwt_1``     backend, then KWT-1 (12 layers, d 64): request
+4. ``perf``            the cost model (``repro_torch.perf``) on the card: the
+                       measured roofline envelope (``perf.calibrate``; a
+                       reading over 1.05x the H100's datasheet FP32 peak or
+                       HBM rate fails, as a timing fault), then every serve
+                       plan of phases 5 and 6 (KWT-Tiny at B = 1, 64 and
+                       4096, KWT-1 at B = 1 and 64) priced by
+                       ``perf.engine_cost`` — the same ``to_dict()`` on the
+                       card as for the same weights on the CPU, products at
+                       the analytic count, the walk leaving the launch
+                       counters as they were — beside its p50 against the
+                       H100's datasheet roof and the measured one
+                       (``roofline_terms``); one KWT-1 hop of 64 lanes the
+                       same way (``perf.stream_hop_cost``, its stage weights
+                       on the H100); a ``StreamLanes`` cell on the card
+                       whose span-less slow hops make the flight recorder
+                       dump, attributed by the cost model's stage weights
+                       to the stage the same cell on the CPU names.
+5. ``serve_kwt_tiny``  KWT-Tiny (full width and depth) under the ``cuda``
+6. ``serve_kwt_1``     backend, then KWT-1 (12 layers, d 64): request
                        batches through ``Engine.forward``, under
                        ``attention="xla"`` (logits ``torch.equal`` to the
                        ``lut`` backend on the card) and ``"flash_lut"``
@@ -56,8 +73,8 @@ quickest proof that the port still builds and starts there:
                        wrappers rise by exactly the expected numbers;
                        each plan's line holds its launches and its ATen
                        ops per forward.
-6. ``stream_kwt_tiny`` the always-on stream through ``Engine.stream_step``
-7. ``stream_kwt_1``    under ``cuda`` + ``xla`` and ``cuda`` + ``flash_lut``:
+7. ``stream_kwt_tiny`` the always-on stream through ``Engine.stream_step``
+8. ``stream_kwt_1``    under ``cuda`` + ``xla`` and ``cuda`` + ``flash_lut``:
                        numpy-seeded audio for 64 lanes in chunks of 1, 2
                        and 5 hops; on every hop once a lane is warm the
                        logits are ``torch.equal`` to ``Engine.forward`` of
@@ -69,7 +86,7 @@ quickest proof that the port still builds and starts there:
    the offline frames of the same audio: the frontend runs its FFT and both
    products on blocks of a fixed shape on the card (``stream.features``), so a
    frame's features do not depend on how many frames share the call.
-8. ``cell_kwt_tiny``   the always-on server through its launcher,
+9. ``cell_kwt_tiny``   the always-on server through its launcher,
                        ``repro_torch.launch.stream_serve.main``, under
                        ``--backend cuda``: 24 seeded event streams on 8
                        slots, the degrade stage on, tracing on (the lanes go
@@ -78,7 +95,7 @@ quickest proof that the port still builds and starts there:
                        exports pass ``repro_torch.telemetry.check``; the hop
                        ledger is exact (``cell_hops_total`` = the offered
                        hops); the ``serve_done`` line's fields are printed.
-9. ``cell_kwt_1``      KWT-1 at full width and depth in a ``ServeCell`` of
+10. ``cell_kwt_1``     KWT-1 at full width and depth in a ``ServeCell`` of
                        64 slots of seeded event streams, under ``cuda`` +
                        ``xla`` and ``cuda`` + ``flash_lut``: joint,
                        pipelined (featurise on a side CUDA stream, encode on
@@ -97,7 +114,7 @@ quickest proof that the port still builds and starts there:
                        joint and the pipelined lanes; 20 more joint and
                        pipelined hops under ``torch.profiler`` (the card's
                        busy share; their launches count as lane hops).
-10. ``train_kwt_tiny`` quantisation-aware training through the launcher,
+11. ``train_kwt_tiny`` quantisation-aware training through the launcher,
                        ``repro_torch.launch.train.main``, under
                        ``--qat-backend cuda`` (the LUT softmax and GELU
                        kernels in every training forward, behind their
@@ -110,7 +127,7 @@ quickest proof that the port still builds and starts there:
                        the non-executing ``lut`` engine, the ``cuda`` plan
                        within 0.35 of it, and the artifact read back from
                        disk deploys bit-identically on that plan.
-11. ``train_kwt_1``    KWT-1 (12 layers, 40x98, 35 classes) trained the same
+12. ``train_kwt_1``    KWT-1 (12 layers, 40x98, 35 classes) trained the same
                        way for 10 steps.
    In both: the STE Functions at the step's own shapes (forward
    ``torch.equal`` to the plain version, input gradient ``torch.equal`` to
@@ -120,8 +137,8 @@ quickest proof that the port still builds and starts there:
    ``torch.equal``); p50 ms per QAT step and ATen ops per step, the
    student alone and (KWT-Tiny) with the teacher.
 
-The serve phases (4, 5), the stream phases (6, 7), the cell phases (8, 9)
-and the train phases (10, 11) are the main paths: the counters go to 0
+The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10)
+and the train phases (11, 12) are the main paths: the counters go to 0
 just before each group and are read just after it; the launches of the
 stream phases' check forwards, of the cell phase's checks (hot-swap's warm
 and probe forwards, the refused artifact's, the taps plan's) and of the
@@ -149,10 +166,12 @@ kernel's input was just written by the op before it).
 
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over the peak for their type
-(1979 TOP/s int8 for the matmul's multiply-adds, 67 TFLOP/s for the
+(1978.9 TOP/s int8 for the matmul's multiply-adds, 67 TFLOP/s for the
 elementwise float32/int32 work and the attention's float32 products,
 4 * B * H * Lq * Lk * D), the published rates of an H100 SXM at its full
-700 W limit.
+700 W limit (``repro_torch.perf.roofline``'s ``H100_*`` constants beside
+``H100``; the per-element operation counts of the softmax and the GELU
+are ``repro_torch.perf.cost``'s).
 """
 
 from __future__ import annotations
@@ -177,7 +196,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import cell as cellmod  # noqa: E402
-from repro_torch import convert, qat, runtime, telemetry  # noqa: E402
+from repro_torch import convert, perf, qat, runtime, telemetry  # noqa: E402
 from repro_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -190,6 +209,8 @@ from repro_torch.launch import stream_serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import kwt  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.perf import cost as perf_cost  # noqa: E402
+from repro_torch.perf import roofline  # noqa: E402
 from repro_torch.qat import train as qat_train  # noqa: E402
 from repro_torch.stream import detector  # noqa: E402
 from repro_torch.stream import engine as stream  # noqa: E402
@@ -198,15 +219,13 @@ from repro_torch.telemetry import check as telemetry_check  # noqa: E402
 
 qat_export = importlib.import_module("repro_torch.qat.export")
 
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-F32_OPS_PER_S = 67e12
-# arithmetic per element, counted from the first kernel sources (two
-# passes of the exp lookup, the limb multiply, the max and the sum for the
-# softmax); the slab softmax looks each exp up once, but the count is kept
-# so that every bound stays comparable with the earlier ones
-SOFTMAX_OPS_PER_ELEM = {True: 40, False: 20}      # fixed, float
-GELU_OPS_PER_ELEM = {False: 8, True: 14}          # nearest, interp
+# the H100 SXM's published rates and the kernels' per-element operation
+# counts, from the cost model (repro_torch.perf)
+HBM_BYTES_PER_S = roofline.H100_HBM_BW
+INT8_OPS_PER_S = roofline.H100_PEAK_OPS_INT8
+F32_OPS_PER_S = roofline.H100_PEAK_FLOPS_FP32
+SOFTMAX_OPS_PER_ELEM = perf_cost.SOFTMAX_OPS_PER_ELEM   # fixed, float
+GELU_OPS_PER_ELEM = perf_cost.GELU_OPS_PER_ELEM         # nearest, interp
 
 BATCHES = (1, 8, 64, 4096)
 TINY_LUT_ATOL = 2.0 ** -5     # card vs CPU, same plan: one activation LSB
@@ -405,7 +424,7 @@ def check_softmax(dev, gen, m, n, fixed, timed, offset=0):
         row["offset"] = offset
     del got, want
     if timed:
-        nbytes = 2 * 4 * m * n + 2 * 4 * 320
+        nbytes = 2 * 4 * m * n + perf_cost.SOFTMAX_LUT_BYTES
         b_ms, by = bound(nbytes, SOFTMAX_OPS_PER_ELEM[fixed] * m * n, F32_OPS_PER_S)
         row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
             lambda: ops.lut_softmax(x, fixed=fixed),
@@ -436,7 +455,7 @@ def check_gelu(dev, gen, shape, interp, dtype, timed, offset=0):
         row["offset"] = offset
     del got, want
     if timed:
-        nbytes = 2 * x.element_size() * numel + 4 * 32
+        nbytes = 2 * x.element_size() * numel + perf_cost.GELU_LUT_BYTES
         b_ms, by = bound(nbytes, GELU_OPS_PER_ELEM[interp] * numel, F32_OPS_PER_S)
         row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
             lambda: ops.lut_gelu(x, interp=interp),
@@ -617,7 +636,7 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
     del got, want, plain, diff
     if timed:
         nbytes = q.element_size() * (2 * b * hq * lq * d + 2 * b * hkv * lk * d) \
-            + 4 * 320
+            + perf_cost.EXP_LUT_BYTES
         b_ms, by = bound(nbytes, 4.0 * b * hq * lq * lk * d, F32_OPS_PER_S)
         numel = b * hq * lq * lk
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -785,9 +804,195 @@ def phase_kernels(dev, configs) -> dict:
           "checks": {k: len(v) for k, v in rows.items()}, "rows": rows})
     return rows
 
+# ---------------------------------------------------------------------------
+# phase 4: the cost model and the rooflines on the card
+# ---------------------------------------------------------------------------
+
+# over the datasheet by more than this, a calibration reading is a timing
+# fault, not a fast card
+CALIBRATION_SLACK = 1.05
+# (model, recipe label, recipe keywords, attention, batches): the serve
+# plans of phases 5 and 6
+PERF_PLANS = [
+    ("kwt-tiny", "int8 (Table V)", None, "xla", (1, 64, 4096)),
+    ("kwt-tiny", "int8 (Table V)", None, "flash_lut", (1, 64, 4096)),
+    ("kwt-1", "int8 (Table V defaults)", None, "xla", (1, 64)),
+    ("kwt-1", "int8 (Table V defaults)", None, "flash_lut", (1, 64)),
+    ("kwt-1", "int4 per-channel",
+     dict(bits=4, weight_exponent=4, per_channel=True), "xla", (1, 64)),
+]
+PERF_REQUESTS = 5             # timed forwards (or hops) per p50, after 2
+PERF_HOP_LANES = 64
+PERF_CELL_SLOTS = 8
+
+
+def analytic_matmul_flops(cfg, batch: int) -> int:
+    """The products of one KWT forward counted by hand: patch embed,
+    Q/K/V, scores, attention-weighted values, wo, the MLP and the head."""
+    f, t_in = cfg.input_dim
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    t = t_in + 1
+    per_layer = (3 * 2 * t * d * (h * dh) + 2 * 2 * h * t * t * dh
+                 + 2 * t * (h * dh) * d + 2 * 2 * t * d * cfg.d_ff)
+    return batch * (2 * t_in * d * f + cfg.n_layers * per_layer
+                    + 2 * d * cfg.n_classes)
+
+
+def require_same_cost(what: str, card, cpu) -> dict:
+    """The card's CostReport.to_dict() must be the CPU's, line for line."""
+    got, want = card.to_dict(), cpu.to_dict()
+    if got != want:
+        a = {(r["stage"], r["op"]): r for r in got["lines"]}
+        b = {(r["stage"], r["op"]): r for r in want["lines"]}
+        diff = {f"{k[0]}/{k[1]}": (a.get(k), b.get(k))
+                for k in sorted(set(a) | set(b)) if a.get(k) != b.get(k)}
+        raise AssertionError(f"{what}: the cost model prices the card's plan "
+                             f"otherwise than the CPU's: {diff}")
+    return got
+
+
+def p50_ms(fn) -> float:
+    for _ in range(2):
+        fn()
+    lat = []
+    for _ in range(PERF_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
+
+
+def roofline_rows(rep, ms: float, measured) -> dict:
+    return {"h100": perf.roofline_terms(rep.flops, rep.bytes, ms * 1e-3,
+                                        perf.H100),
+            "measured": perf.roofline_terms(rep.flops, rep.bytes, ms * 1e-3,
+                                            measured)}
+
+
+def flight_attribution(eng, fcfg, tmp: str) -> dict:
+    """A span-less slow-hop dump of a StreamLanes cell on ``eng``'s
+    device: every hop is over a budget of 1e-9 ms, no tracer is active,
+    so the recorder attributes by the stage weights the lanes installed."""
+    dev = eng.device
+    cell = cellmod.ServeCell(eng, slots=PERF_CELL_SLOTS,
+                             registry=telemetry.Registry(),
+                             flight=telemetry.FlightConfig(
+                                 dump_dir=os.path.join(tmp, dev.type),
+                                 min_hops=2))
+    lanes = cell.stream_lanes(fcfg, detector.DetectorConfig())
+    if not callable(cell.flight.stage_weights):
+        raise AssertionError("StreamLanes installed no lazy stage weights")
+    cell.metrics.latency_budget.set(1e-9)
+    rng = np.random.default_rng(5)
+    for lane in range(PERF_CELL_SLOTS):
+        lanes.join(lane)
+    while not cell.flight.dumps:
+        if lanes.cell.metrics.hops.value > 8 * PERF_CELL_SLOTS:
+            raise AssertionError(f"{dev}: no slow-hop dump in 8 hops")
+        lanes.hop(rng.normal(0, 0.1, (PERF_CELL_SLOTS, fcfg.hop_len))
+                  .astype(np.float32))
+    with open(cell.flight.dumps[0]) as fh:
+        art = json.load(fh)
+    att = art["attribution"]
+    if att["method"] != "cost-model-weights" or \
+            set(att["stage_ms"]) != set(cell.flight.stage_weights):
+        raise AssertionError(f"{dev}: the dump is not attributed by the cost "
+                             f"model's weights: {att}")
+    return {"reason": art["reason"], "attribution": att,
+            "stage_weights": cell.flight.stage_weights}
+
+
+def phase_perf(dev, info: dict) -> None:
+    """The cost model and the rooflines on the card: the measured
+    envelope (no reading over the datasheet), every serve plan's cost
+    priced the same on the card and on the CPU with its products at the
+    analytic count, its p50 against the H100's datasheet roof and the
+    measured one; one KWT-1 hop of 64 lanes the same way with its stage
+    weights; a StreamLanes flight dump on the card attributed by the cost
+    model to the stage the same cell on the CPU names."""
+    measured = perf.calibrate(device=dev)
+    if measured.peak_flops > CALIBRATION_SLACK * roofline.H100_PEAK_FLOPS_FP32 \
+            or measured.mem_bw > CALIBRATION_SLACK * roofline.H100_HBM_BW:
+        raise AssertionError(f"calibration over the datasheet: {measured}")
+    out = {"phase": "perf", "card": info["name"],
+           "nvidia_smi": info["nvidia_smi"], "measured": measured.to_dict(),
+           "datasheet": perf.H100.to_dict(),
+           "fp32_peak_share": measured.peak_flops
+           / roofline.H100_PEAK_FLOPS_FP32,
+           "hbm_share": measured.mem_bw / roofline.H100_HBM_BW, "plans": []}
+    rng = np.random.default_rng(6)
+    trees = {}
+    for name, label, recipe_kw, attention, batches in PERF_PLANS:
+        cfg = registry.get(name).config
+        if name not in trees:
+            trees[name] = seeded_params(cfg, 0, dev)
+        recipe = None if recipe_kw is None else \
+            runtime.QuantRecipe.from_config(cfg, **recipe_kw)
+        eng = runtime.compile_model(
+            cfg, convert.from_numpy_tree(trees[name], dev), backend="cuda",
+            recipe=recipe, attention=attention, device=dev)
+        twin = perf_cost.cuda_plan_on_cpu(
+            cfg, convert.from_numpy_tree(trees[name], "cpu"), recipe=recipe,
+            attention=attention)
+        for b in batches:
+            what = f"{name} {label} {attention} B={b}"
+            before = ops.launch_counts()
+            rep = perf.engine_cost(eng, batch=b)
+            if ops.launch_counts() != before:
+                raise AssertionError(f"{what}: the walk moved the counters")
+            cost = require_same_cost(what, rep,
+                                     perf.engine_cost(twin, batch=b))
+            want = analytic_matmul_flops(cfg, b)
+            if rep.matmul_flops != want:
+                raise AssertionError(f"{what}: matmul_flops "
+                                     f"{rep.matmul_flops}, analytic {want}")
+            x = rng.normal(0, 0.5, (b, *cfg.input_dim)).astype(np.float32)
+            ms = p50_ms(lambda: eng.forward(x))
+            out["plans"].append({"model": name, "recipe": label,
+                                 "attention": attention, "batch": b,
+                                 "p50_ms": ms, "cost": cost,
+                                 **roofline_rows(rep, ms, measured)})
+    # one KWT-1 hop of 64 lanes, and the flight dump, under cuda + xla
+    cfg = registry.get("kwt-1").config
+    fcfg = features.FrontendConfig(n_mfcc=cfg.input_dim[0])
+    eng = runtime.compile_model(cfg, convert.from_numpy_tree(trees["kwt-1"],
+                                                             dev),
+                                backend="cuda", device=dev)
+    twin = perf_cost.cuda_plan_on_cpu(
+        cfg, convert.from_numpy_tree(trees["kwt-1"], "cpu"))
+    rep = perf.stream_hop_cost(eng, fcfg, batch=PERF_HOP_LANES)
+    cost = require_same_cost("kwt-1 hop", rep, perf.stream_hop_cost(
+        twin, fcfg, batch=PERF_HOP_LANES))
+    state = stream.init_stream_state(cfg, fcfg, PERF_HOP_LANES,
+                                     keep_features=False, device=dev)
+    chunk = torch.from_numpy((0.1 * rng.normal(size=(
+        PERF_HOP_LANES, fcfg.hop_len))).astype(np.float32)).to(dev)
+
+    def one_hop():
+        nonlocal state
+        state, _ = eng.stream_step(state, chunk, fcfg)
+
+    ms = p50_ms(one_hop)
+    out["hop"] = {"model": "kwt-1", "lanes": PERF_HOP_LANES, "p50_ms": ms,
+                  "cost": cost, "stage_weights_h100":
+                  rep.stage_weights(perf.H100),
+                  **roofline_rows(rep, ms, measured)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_perf_",
+                                     dir=build.build_dir()) as tmp:
+        on_card = flight_attribution(eng, fcfg, tmp)
+        on_cpu = flight_attribution(twin, fcfg, tmp)
+    if on_card["attribution"]["slowest_stage"] != \
+            on_cpu["attribution"]["slowest_stage"]:
+        raise AssertionError(f"the card's dump names another slowest stage "
+                             f"than the CPU's: {on_card} / {on_cpu}")
+    out["flight"] = {"card": on_card, "cpu": on_cpu}
+    emit(out)
+
 
 # ---------------------------------------------------------------------------
-# phases 4 + 5: the main path
+# phases 5 + 6: the main path
 # ---------------------------------------------------------------------------
 
 def seeded_params(cfg, seed: int, dev):
@@ -944,7 +1149,7 @@ def phase_serve(name: str, dev, batches, recipes, requests=3) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 6 + 7: the always-on stream
+# phases 7 + 8: the always-on stream
 # ---------------------------------------------------------------------------
 
 STREAM_CHUNKS = (1, 2, 5)     # hops per stream_step, cycled
@@ -1065,7 +1270,7 @@ def phase_stream(name: str, dev, lanes: int, hops: int, reset_at: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 8 + 9: the always-on server (the serving cell)
+# phases 9 + 10: the always-on server (the serving cell)
 # ---------------------------------------------------------------------------
 
 CELL_TINY_ARGS = ["--arch", "kwt-tiny", "--backend", "cuda", "--streams", "24",
@@ -1393,7 +1598,7 @@ def phase_cell_kwt_1(dev, tmp: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# phases 10 + 11: the train path
+# phases 11 + 12: the train path
 # ---------------------------------------------------------------------------
 
 TRAIN_TINY_ARGS = ["--arch", "kwt-tiny", "--qat", "--qat-backend", "cuda",
@@ -1772,6 +1977,7 @@ def main() -> None:
     phase_build()
     tiny, kwt1 = registry.get("kwt-tiny").config, registry.get("kwt-1").config
     rows = phase_kernels(dev, (tiny, kwt1))
+    phase_perf(dev, info)
 
     # The main paths.  Every count goes to 0 just before each and is read
     # just after it: launches made above to compare kernels do not count.

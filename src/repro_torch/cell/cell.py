@@ -182,10 +182,17 @@ class StreamLanes:
         self._pipe = pipeline_mod.HopPipeline(
             cell.handle, fcfg, keep_features=keep_features) \
             if pipelined else None
-        # The reference installs static stage weights for flight dumps from
-        # its cost model (perf.stream_hop_cost); the port's cost model is
-        # ROADMAP queue A item 2, so none is installed and the recorder
-        # falls back as the reference's does when given none.
+        if cell.flight is not None and cell.flight.stage_weights is None:
+            # static fallback attribution for flight dumps: the cost
+            # model's roofline-weighted stage split of exactly this hop
+            # program (lazy: walked only if a dump ever happens)
+            def _weights(eng=eng, fcfg=fcfg, k=chunk_hops,
+                         fi=feature_ingest):
+                from repro_torch import perf
+                rep = perf.stream_hop_cost(eng, fcfg, batch=1,
+                                           chunk_hops=k, feature_ingest=fi)
+                return rep.stage_weights(perf.host_machine(device=eng.device))
+            cell.flight.stage_weights = _weights
 
     @property
     def chunk_samples(self) -> int:

@@ -22,6 +22,11 @@ patch embedding there (a plan that does not integer-execute) promises no
 bit equality between streamed and offline rows, and a QAT step does not
 pay for blocks it does not need.  The ``cuda`` plans embed through the
 integer matmul, which is exact.
+
+The cost model (``perf.cost``) prices either realisation as the one
+product or call it stands for: under its op recorder, :func:`by_row_blocks`
+makes the one call and :func:`rowwise_matmul` reports one product, so a
+plan prices the same on either device.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.analysis import op_walk
+
 CARD_ROWS = 64      # rows per call on the card: one hop of 64 lanes
 
 
@@ -37,6 +44,8 @@ def by_row_blocks(x: torch.Tensor, fn: Callable, rows: int = CARD_ROWS
                   ) -> torch.Tensor:
     """``fn`` applied to ``x`` [M, K] in calls of exactly ``rows`` rows
     (zero rows pad the last one; their results are dropped)."""
+    if op_walk.recorder is not None:
+        return fn(x)
     m = x.shape[0]
     pad = -m % rows
     if pad:
@@ -52,6 +61,15 @@ def rowwise_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for x [..., K] and w [K, N]; on the CPU as one
     [1, K] @ [K, N] product per row (module docstring), on the card the
     ordinary product."""
+    if op_walk.recorder is not None:
+        m, k, n = x.numel() // x.shape[-1], x.shape[-1], w.shape[-1]
+        nbytes = x.element_size() * (m * k + m * n) + w.element_size() * k * n
+        return op_walk.charged((("matmul", 2 * m * k * n, nbytes),),
+                               _product, x, w)
+    return _product(x, w)
+
+
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cpu":
         return torch.matmul(x, w)
     lead, k = x.shape[:-1], x.shape[-1]

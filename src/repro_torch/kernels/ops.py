@@ -5,6 +5,11 @@ A wrapper launches its kernel for a tensor on a CUDA device and takes the
 kernel's plain version (``kernels.ref``) only for a tensor on the CPU —
 there is no fallback: if the kernels do not build, a CUDA call raises.
 
+Under the cost model's op recorder (``analysis.op_walk.recorder`` set) a
+wrapper reports what its kernel computes — op class, operations, bytes
+(``perf.cost.*_charge``) — and its own ATen ops go unrecorded, so a plan
+prices the same on either device.
+
 The CUDA kernels mask their ragged edges themselves, so nothing is padded
 here and the reference's ``pad_to_block`` is not ported.  ``fit_block``
 is: the attention kernel's key tiles must end where the reference's do.
@@ -12,13 +17,17 @@ is: the attention kernel's key tiles must end where the reference's do.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.analysis import op_walk as _walk
 from repro_torch.core import quant as _q
 from repro_torch.kernels import int8_matmul as _mm
 from repro_torch.kernels import lut_attention as _attn
 from repro_torch.kernels import lut_gelu as _gelu
 from repro_torch.kernels import lut_softmax as _sm
+from repro_torch.perf import cost as _cost
 
 _KERNEL_MODULES = {"lut_softmax": _sm, "lut_gelu": _gelu, "int8_matmul": _mm,
                    "lut_attention": _attn}
@@ -51,6 +60,13 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
+def restore_launch_counts(counts: dict) -> None:
+    """Put back counts read by :func:`launch_counts`: the cost model's
+    walks run a plan once and launch its kernels, for no path."""
+    for name, mod in _KERNEL_MODULES.items():
+        mod.launches = counts[name]
+
+
 def refuse_grad(x: torch.Tensor, what: str) -> None:
     """Raise where a wrapper would cut a gradient: its output is written by
     a kernel (or, on the CPU, by integer table lookups) and carries no
@@ -71,6 +87,9 @@ def lut_gelu(x: torch.Tensor, *, interp: bool = False) -> torch.Tensor:
     """Piecewise LUT GELU over any-shaped input (output in ``x.dtype``).
     Refuses a tensor that is recording a gradient (:func:`refuse_grad`)."""
     refuse_grad(x, "lut_gelu")
+    if _walk.recorder is not None:
+        return _walk.charged(_cost.gelu_charge(x, interp),
+                             _gelu.lut_gelu_flat, x, interp=interp)
     return _gelu.lut_gelu_flat(x, interp=interp)
 
 
@@ -78,6 +97,9 @@ def lut_softmax(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
     """LUT softmax along the last axis of any-shaped input.  Refuses a
     tensor that is recording a gradient (:func:`refuse_grad`)."""
     refuse_grad(x, "lut_softmax")
+    if _walk.recorder is not None:
+        return _walk.charged(_cost.softmax_charge(x, fixed),
+                             _sm.lut_softmax_rows, x, fixed=fixed)
     return _sm.lut_softmax_rows(x, fixed=fixed)
 
 
@@ -115,7 +137,16 @@ def int8_matmul(x_int, w_int, *, x_exp: int | None = None,
         raise ValueError("raw int operands need explicit x_exp/w_exp")
     acc_exp = x_exp + w_exp
     out_exp = acc_exp if out_exp is None else out_exp
-    return _mm.int8_matmul_scaled(
+    call = _mm.int8_matmul_scaled
+    if _walk.recorder is not None:
+        k, n = w_shape if w_shape is not None else w_int.shape
+        m = x_int.numel() // max(k, 1)
+        in_bytes = _walk.tensor_bytes(x_int) + _walk.tensor_bytes(w_int) + (
+            0 if w_axis is None else _walk.tensor_bytes(w_axis))
+        call = functools.partial(
+            _walk.charged, _cost.matmul_charge(m, k, n, in_bytes, 4 * m * n),
+            call)
+    return call(
         x_int, w_int, shift=acc_exp - out_exp, clip16=residual_bits == 16,
         out_exp=out_exp, axis_exponents=w_axis, x_exp=x_exp, x_bits=x_bits,
         w_shape=w_shape)
@@ -124,6 +155,14 @@ def int8_matmul(x_int, w_int, *, x_exp: int | None = None,
 def int8_matmul_raw(x_int: torch.Tensor, w_int: torch.Tensor, *,
                     shift: int = 0, out_int16: bool = False) -> torch.Tensor:
     """The raw accumulator of the kernel: int32, or int16 after the clip."""
+    if _walk.recorder is not None:
+        (k, n), m = w_int.shape, x_int.shape[0]
+        in_bytes = _walk.tensor_bytes(x_int) + _walk.tensor_bytes(w_int)
+        return _walk.charged(
+            _cost.matmul_charge(m, k, n, in_bytes,
+                                (2 if out_int16 else 4) * m * n),
+            _mm.int8_matmul_raw, x_int, w_int, shift=shift,
+            out_int16=out_int16)
     return _mm.int8_matmul_raw(x_int, w_int, shift=shift, out_int16=out_int16)
 
 
@@ -139,6 +178,9 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
-    return _attn.lut_attention(q, k, v, causal=causal, use_lut=use_lut,
-                               scale=scale,
-                               block_k=fit_block(k.shape[2], ATTN_BLOCK_K))
+    call = _attn.lut_attention
+    if _walk.recorder is not None:
+        call = functools.partial(_walk.charged,
+                                 _cost.attention_charge(q, k, v), call)
+    return call(q, k, v, causal=causal, use_lut=use_lut, scale=scale,
+                block_k=fit_block(k.shape[2], ATTN_BLOCK_K))

@@ -248,8 +248,16 @@ class Engine:
         than a dequantised float copy."""
         return _has_qtensors(self.params)
 
-    def describe(self) -> str:
-        """One-line plan summary."""
+    def describe(self, analyze: bool = False, cost: bool = False) -> str:
+        """One-line plan summary.  ``cost=True`` appends the static cost
+        model's totals (``repro_torch.perf``) plus the paper-style
+        per-(stage, op) table priced on the RV32 MCU model — the one-stop
+        answer to "what does this plan cost and where".  ``analyze=True``
+        (the reference's static-analysis verdict) waits for ROADMAP queue
+        A item 5 and raises."""
+        if analyze:
+            _later("Engine.describe(analyze=True)",
+                   "item 5 (the analysis passes)")
         q = "" if self.recipe is None else \
             f", w=2^{self.recipe.weight_exponent}" \
             f"/x=2^{self.recipe.input_exponent} " \
@@ -259,10 +267,19 @@ class Engine:
         kern = ", kernels=cuda" if self.backend.uses_kernels else ""
         attn = "" if self.exec_cfg.attn_impl == "xla" else \
             f", attn={self.exec_cfg.attn_impl}"
-        return (f"Engine[{self.backend.name}] {self.exec_cfg.name} on "
+        line = (f"Engine[{self.backend.name}] {self.exec_cfg.name} on "
                 f"{self.device}: params {self.param_bytes} B, "
                 f"rom {self.rom_bytes} B, lut {self.lut_bytes} B{q}{kern}"
                 f"{attn}")
+        if cost:
+            from repro_torch import perf
+            rep = perf.engine_cost(self, batch=1)
+            mcu = perf.PAPER_MCU
+            line += (f" | cost/fwd: {rep.flops:.0f} flops, "
+                     f"{rep.bytes:.0f} B moved, AI {rep.intensity:.2f}, "
+                     f"~{mcu.cycles(rep.flops, rep.bytes):.3g} "
+                     f"{mcu.name} cycles\n" + rep.table(mcu))
+        return line
 
 
 class EngineHandle:

@@ -25,11 +25,10 @@ incident: the hop ring (a trace), admission/swap counter deltas, the
 full metric snapshot, and a **stage attribution** of the slow hops —
 measured span means when the hops carried spans, otherwise static stage
 weights given to the recorder — naming the stage that owns the regression
-(``"encode"``, ``"unpack"``, ...).  The reference takes those weights
-from its cost model (``perf.stream_hop_cost``); the port's cost model is
-ROADMAP queue A item 2, so until then ``StreamLanes`` installs none and
-the recorder falls back, as the reference's does when given none, to
-charging the whole hop to ``"encode"``.
+(``"encode"``, ``"unpack"``, ...).  ``cell.StreamLanes`` gives its cell's
+recorder those weights from the cost model (``perf.stream_hop_cost`` of
+its hop, priced on the device's calibrated roofline); a recorder given
+none charges the whole hop to ``"encode"``.
 """
 
 from __future__ import annotations
@@ -81,9 +80,8 @@ class FlightRecorder:
     ``stage_weights`` — ``{stage: fraction}`` summing to 1, or a
     zero-arg callable returning one (resolved lazily at first dump, so
     wiring the recorder costs nothing on the hot path) — is the static
-    fallback attribution for hops recorded without spans.
-    (The reference's ``StreamLanes`` wires it from its cost model; the
-    port's waits for ROADMAP queue A item 2.)
+    fallback attribution for hops recorded without spans
+    (``cell.StreamLanes`` wires it from the cost model).
     """
 
     def __init__(self, metrics, config: Optional[FlightConfig] = None,

@@ -3,8 +3,8 @@
 The serving-side half of ``repro_torch.telemetry`` (the host analogue of
 paxml's ``base_metrics``): one :class:`Registry` of named metrics shared
 by the serve loops (per-hop latency, lane occupancy, queue depth, refill
-rate, per-stream RTF, detector event counts) and, once they are ported,
-the benchmark harnesses (ROADMAP queue A item 2).
+rate, per-stream RTF, detector event counts) and the benchmark harnesses
+that will report through it.
 
 :func:`latency_summary` is the ONE latency-row schema: both BENCH_*.json
 rows and live ``Histogram.summary()`` exports use its field names

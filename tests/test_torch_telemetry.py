@@ -522,8 +522,8 @@ def test_flight_dump_artifact_schema(flight):
 
 
 def test_flight_without_weights_charges_encode(tmp_path):
-    """What the port's StreamLanes installs until the cost model exists:
-    no stage weights, so a span-less dump charges the hop to encode."""
+    """A recorder given no stage weights (``StreamLanes`` installs the
+    cost model's) charges a span-less dump's hop to encode."""
     m = make_cell_metrics(telemetry.Registry())
     fr = FlightRecorder(m, FlightConfig(capacity=4, dump_dir=str(tmp_path)))
     fr.record_hop(3.0)
