@@ -4,8 +4,10 @@
 Needs one NVIDIA GPU (built for Hopper, ``sm_90a``) and ``nvcc``; takes no
 arguments.  It drives the port's main paths — the Keyword Transformer
 served offline through ``repro_torch.runtime``, streamed hop by hop, and
-trained with quantisation-aware training — on the card, and is the
-quickest proof that the port still builds and starts there:
+trained with quantisation-aware training, and the dense LM
+(internlm2-1.8b at full width) served with continuous batching — on the
+card, and is the quickest proof that the port still builds and starts
+there:
 
 1. ``device``          the card, its power limit, TF32 off.
 2. ``build``           compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc``
@@ -29,6 +31,17 @@ quickest proof that the port still builds and starts there:
    edges, int4 payloads of odd K * N; beside its time ``torch._int_mm``
    (the same int8 product; where it refuses a shape, its error) and f32
    ``torch.matmul``, the faster of them as ``library_ms``.
+   At the dense LM's shapes (internlm2-1.8b): the matmul's K-looped path
+   for the packed head ``[B, 2048] @ [2048, 92544]`` at B = 4 and 64 with
+   per-channel exponents, float32 and bf16 activations (beside
+   ``torch._int_mm`` and bf16 ``torch.matmul``), a K of 1000 and K = 8192,
+   int4 weights at K = 2048 and at an odd K * N (the K loop's byte-by-byte
+   weight staging, which N = 300 takes too);
+   the masked softmax (``approx.masked_softmax(mode="cuda")``) on causal
+   prefill rows and per-lane decode rows of 33, 256 and 1024 keys, beside
+   ``torch.softmax``; the causal GQA attention (2, 16, 8, 1024, 1024, 128)
+   on strided views, beside SDPA.  The kernels line carries these rows
+   under ``lm``.
    ``lut_attention`` cannot be ``torch.equal``: the kernel's own order of
    the dot over D moves an occasional score across a 1/32 LUT bin.  In
    its LUT mode it is held to its plain version (``ref.lut_attention``,
@@ -137,12 +150,41 @@ quickest proof that the port still builds and starts there:
    ``torch.equal``); p50 ms per QAT step and ATen ops per step, the
    student alone and (KWT-Tiny) with the teacher.
 
-The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10)
-and the train phases (11, 12) are the main paths: the counters go to 0
+13. ``lm_internlm2``   internlm2-1.8b at full width (24 layers, d 2048, 16
+                       heads / 8 KV, head_dim 128, d_ff 8192, vocab 92544,
+                       bf16; random weights drawn on the card from a seed)
+                       served through ``repro_torch.launch.serve --backend
+                       cuda``: 8 requests on 4 slots, KV caches of 256,
+                       tracing on, every request served, the artifacts
+                       valid; the launches equal one softmax per layer and
+                       one matmul (the packed head) per prefill and decode
+                       step.  Then on the same plan: prefill of S - 1
+                       tokens + one ``decode_step`` against ``forward``'s
+                       last logits (``LM_DECODE_REL``; the ``float`` plan
+                       at float32 activations to rel 1e-4), and a per-lane
+                       step equal to the scalar one; the same requests
+                       in two orders give equal tokens; ``cuda`` against
+                       ``lut`` (recorded; apart by design); the
+                       ``flash_lut`` forward at B = 2, S = 1024 against the
+                       ``xla`` one (``LM_FLASH_*``; one attention launch
+                       per layer, counted on the path); p50 ms per decode
+                       step and per prefill, ATen ops per step.
+14. ``lm_dense_smoke`` the five dense smoke configs under ``float``, ``lut``
+                       and ``cuda``: decode == forward within the
+                       reference's rel 1e-4, and the card against the same
+                       plan on the CPU (the ``cuda`` plan there through its
+                       kernels' plain versions): 1e-4 on ``float``, two
+                       steps of the head's eq-9 input on the integer plans
+                       (``LM_SMOKE_*``).
+
+The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
+the train phases (11, 12) and the LM server with its ``flash_lut`` forward
+(13) are the main paths: the counters go to 0
 just before each group and are read just after it; the launches of the
 stream phases' check forwards, of the cell phase's checks (hot-swap's warm
 and probe forwards, the refused artifact's, the taps plan's) and of the
-train phases' checks are taken out of their paths' counts, which must then
+train phases' checks (and of the LM phase's checks after its served run)
+are taken out of their paths' counts, which must then
 equal what the steps, hops and runs launched.  Every path's
 count must equal what that path is expected to launch (the train path
 launches the softmax and the GELU ``n_layers`` times a step and neither
@@ -204,10 +246,12 @@ from repro_torch.core import approx, quant  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import stream_serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import kwt  # noqa: E402
+from repro_torch.models import transformer as lm_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.perf import cost as perf_cost  # noqa: E402
 from repro_torch.perf import roofline  # noqa: E402
@@ -485,12 +529,14 @@ def matmul_activations(gen, m, k, dev, bits=8):
     return x
 
 
-def matmul_library(x_int, grid, numel_hint: int) -> dict:
+def matmul_library(x_int, grid, numel_hint: int, float_dtype=torch.float32
+                   ) -> dict:
     """The library calls beside the matmul: ``torch._int_mm`` (the same
     int8 x int8 -> int32 product; where it refuses the shape, its error
-    text) and float32 ``torch.matmul`` over the same integer grids;
-    ``library_ms`` / ``library_device_ms`` are the faster of the two on
-    the device, ``library_call`` names it."""
+    text) and ``torch.matmul`` over the same integer grids in
+    ``float_dtype`` (float32, or bfloat16 for the LM's head, whose
+    activation is bf16); ``library_ms`` / ``library_device_ms`` are the
+    faster of the two on the device, ``library_call`` names it."""
     out = {}
     try:
         torch._int_mm(x_int, grid)
@@ -501,16 +547,19 @@ def matmul_library(x_int, grid, numel_hint: int) -> dict:
                        lambda: torch._int_mm(x_int, grid), numel_hint))
     except RuntimeError as e:
         out["int_mm_error"] = str(e).splitlines()[0][:200]
-    xf, wf = x_int.to(torch.float32), grid.to(torch.float32)
-    out.update(f32_matmul_ms=time_ms(lambda: torch.matmul(xf, wf), numel_hint),
-               f32_matmul_device_ms=device_ms(lambda: torch.matmul(xf, wf),
-                                              numel_hint))
-    best = "f32_matmul"
+    xf, wf = x_int.to(float_dtype), grid.to(float_dtype)
+    fm = "f32_matmul" if float_dtype == torch.float32 else "bf16_matmul"
+    out.update({f"{fm}_ms": time_ms(lambda: torch.matmul(xf, wf), numel_hint),
+                f"{fm}_device_ms": device_ms(lambda: torch.matmul(xf, wf),
+                                             numel_hint)})
+    del xf, wf
+    best = fm
     if "int_mm_device_ms" in out and \
-            out["int_mm_device_ms"] <= out["f32_matmul_device_ms"]:
+            out["int_mm_device_ms"] <= out[f"{fm}_device_ms"]:
         best = "int_mm"
     out.update(library_call={"int_mm": "torch._int_mm",
-                             "f32_matmul": "torch.matmul (float32)"}[best],
+                             "f32_matmul": "torch.matmul (float32)",
+                             "bf16_matmul": "torch.matmul (bfloat16)"}[best],
                library_ms=out[f"{best}_ms"],
                library_device_ms=out[f"{best}_device_ms"])
     return out
@@ -518,14 +567,14 @@ def matmul_library(x_int, grid, numel_hint: int) -> dict:
 
 def check_matmul(dev, gen, tag, m, k, n, *, bits=8, per_channel=False,
                  residual_bits=16, x_float=False, axis_range=(-2, 3),
-                 timed=False):
+                 timed=False, x_dtype=torch.float32):
     """The f32-epilogue mode through the public wrapper, QTensor weight
     (an int4 one nibble-packed, unpacked by the kernel), the activation
     as int8 or (``x_float``) as float32 quantised by the kernel; against
     the plain version of the same input modes (``quantize_act``, then
     ``unpack_po2``, then the integer matmul), ``torch.equal``."""
     lo, hi = quant.int_range(bits)
-    x = matmul_activations(gen, m, k, dev) if x_float else \
+    x = matmul_activations(gen, m, k, dev).to(x_dtype) if x_float else \
         _rand_i8(gen, (m, k), dev)
     grid = _rand_i8(gen, (k, n), dev, lo, hi + 1)
     axis = _rand_i8(gen, (n,), dev, *axis_range) if per_channel else None
@@ -534,16 +583,21 @@ def check_matmul(dev, gen, tag, m, k, n, *, bits=8, per_channel=False,
     got = ops.int8_matmul(x, w, x_exp=5, residual_bits=residual_bits)
 
     def plain():
-        return ref.int8_matmul_io(x, w.values, shift=0,
+        # the wrapper casts a bf16 activation to float32 before the launch
+        return ref.int8_matmul_io(x.float() if x_float else x, w.values,
+                                  shift=0,
                                   clip16=residual_bits == 16, out_exp=11,
                                   axis_exponents=axis, x_exp=5,
                                   w_shape=w_shape)
 
     want = plain()
     row = {"variant": f"f32 int{bits}" + (" per-channel" if per_channel else "")
-           + f" residual{residual_bits}" + (" float-x" if x_float else ""),
-           "tag": tag, "shape_mkn": [m, k, n], "input": "float32 x, "
-           "quantised in the kernel" if x_float else "int8 x",
+           + f" residual{residual_bits}" + (" float-x" if x_float else "")
+           + (" bf16-x" if x_dtype == torch.bfloat16 else ""),
+           "tag": tag, "shape_mkn": [m, k, n], "input": (
+               "bfloat16 x, cast to float32 and quantised in the kernel"
+               if x_dtype == torch.bfloat16 else "float32 x, quantised in "
+               "the kernel") if x_float else "int8 x",
            "equal": True, "max_abs_err": require_equal(
                f"int8_matmul {tag} {(m, k, n)} int{bits} pc={per_channel} "
                f"rb={residual_bits} float_x={x_float}", got, want)}
@@ -551,8 +605,8 @@ def check_matmul(dev, gen, tag, m, k, n, *, bits=8, per_channel=False,
         row["clip_hit"] = bool((want.abs() >= 32767 * 2.0 ** -11).any())
     del got, want
     if timed:
-        nbytes = (4 if x_float else 1) * m * k + w.values.numel() \
-            + 4 * m * n + (n if per_channel else 0)
+        nbytes = (x.element_size() if x_float else 1) * m * k \
+            + w.values.numel() + 4 * m * n + (n if per_channel else 0)
         b_ms, by = bound(nbytes, 2.0 * m * k * n, INT8_OPS_PER_S)
         x_int = quant.quantize_act(x, 5).to(torch.int8) if x_float else x
         hint = m * max(k, n)
@@ -562,7 +616,8 @@ def check_matmul(dev, gen, tag, m, k, n, *, bits=8, per_channel=False,
                    device_ms=device_ms(lambda: ops.int8_matmul(
                        x, w, x_exp=5, residual_bits=residual_bits), hint),
                    plain_ms=time_ms(plain, hint),
-                   **matmul_library(x_int, grid, hint))
+                   **matmul_library(x_int, grid, hint, float_dtype=x_dtype
+                                    if x_float else torch.float32))
     return row
 
 
@@ -637,9 +692,17 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
     if timed:
         nbytes = q.element_size() * (2 * b * hq * lq * d + 2 * b * hkv * lk * d) \
             + perf_cost.EXP_LUT_BYTES
-        b_ms, by = bound(nbytes, 4.0 * b * hq * lq * lk * d, F32_OPS_PER_S)
+        # the (query, key) pairs the inputs need: under a causal mask
+        # (queries right-aligned) query i sees min(lk, i + 1 + lk - lq) keys
+        pairs = lq * lk if not causal else sum(
+            max(0, min(lk, i + 1 + lk - lq)) for i in range(lq))
+        b_ms, by = bound(nbytes, 4.0 * b * hq * pairs * d, F32_OPS_PER_S)
         numel = b * hq * lq * lk
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["pairs_per_head"] = pairs
+
+        def sdpa(q, k, v, is_causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=is_causal, enable_gqa=hq != hkv)
         # the bytes alone, beside the float32 operations bound kept from
         # the first slices: what a tensor-core design is held to
         row.update(bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
@@ -800,9 +863,89 @@ def phase_kernels(dev, configs) -> dict:
         rows["lut_attention"].append(check_attention(
             dev, gen, (1, 2, 2, 32, 32, 32), causal, True,
             dtype=torch.bfloat16))
+    lm_kernel_rows(dev, gen, rows)
     emit({"phase": "kernels", "all_checks_passed": True,
           "checks": {k: len(v) for k, v in rows.items()}, "rows": rows})
     return rows
+
+# the dense LM's shapes (internlm2-1.8b at full width): the head's
+# [B, 2048] @ [2048, 92544] at a decode step of 4 slots and at 64 rows, a K
+# that is not a multiple of 32, and the MLP's K = 8192; masked softmax rows
+# of a decode step (per-lane validity) and of a prefill (causal); the
+# flash-LUT attention's causal GQA at D = 128
+LM_NAME = "internlm2-1.8b"
+LM_HEAD_ROWS = (4, 64)
+# (tag, M, K, N, weight bits); the int4 rows and N = 300 take the K loop's
+# byte-by-byte weight staging, the others its 16-byte cp.async
+LM_MATMUL_EXTRA = [("ragged_k", 5, 1000, 300, 8), ("k8192", 4, 8192, 2048, 8),
+                   ("k8192", 64, 8192, 2048, 8), ("int4_k", 64, 2048, 1024, 4),
+                   ("int4_odd_kn", 3, 301, 7, 4)]
+LM_SOFTMAX_SK = (33, 256, 1024)
+LM_SLOTS = 4
+LM_ATTENTION = (2, 16, 8, 1024, 1024, 128)
+
+
+def check_masked_softmax(dev, gen, kind, sk, heads, lanes):
+    """The cuda masked softmax (``approx.masked_softmax(mode="cuda")``: the
+    kernel on the masked scores, then zeroed and renormalised) against the
+    same with the kernel's plain version, on the card, ``torch.equal``.
+    ``causal``: one prefill of ``sk`` queries against ``sk`` keys;
+    ``per_lane``: one decode query per lane against a cache of ``sk``
+    slots, each lane valid up to its own depth."""
+    sq = sk if kind == "causal" else 1
+    s = torch.randn((lanes, heads // 2, 2, sq, sk), generator=gen,
+                    device=dev) * 3.0
+    kpos = torch.arange(sk, device=dev)
+    if kind == "causal":
+        mask = (torch.arange(sq, device=dev)[:, None] >= kpos)[None, None, None]
+    else:
+        depth = torch.randint(1, sk + 1, (lanes,), generator=gen, device=dev)
+        mask = (kpos < depth[:, None, None]).expand(lanes, sq, sk)[:, None, None]
+    got = approx.masked_softmax(s, mask, mode="cuda")
+    sm = torch.where(mask, s, torch.finfo(torch.float32).min)
+
+    def plain():
+        out = torch.where(mask, ref.lut_softmax(sm, fixed=True), 0.0)
+        return out / out.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+
+    row = {"variant": f"fixed masked {kind}", "model": LM_NAME,
+           "shape": [s.numel() // sk, sk], "equal": True,
+           "max_abs_err": require_equal(f"masked lut_softmax {kind} sk={sk}",
+                                        got, plain())}
+    m, n = s.numel() // sk, sk
+    x = sm.reshape(m, n)
+    nbytes = 2 * 4 * m * n + perf_cost.SOFTMAX_LUT_BYTES
+    b_ms, by = bound(nbytes, SOFTMAX_OPS_PER_ELEM[True] * m * n, F32_OPS_PER_S)
+    row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
+        lambda: ops.lut_softmax(x, fixed=True),
+        lambda: ref.lut_softmax(x, fixed=True),
+        lambda: torch.softmax(x, dim=-1), m * n))
+    return row
+
+
+def lm_kernel_rows(dev, gen, rows) -> None:
+    """The kernels at the dense LM's shapes, appended to ``rows``."""
+    cfg = registry.get(LM_NAME).config
+    d, v = cfg.d_model, cfg.padded_vocab
+    for m in LM_HEAD_ROWS:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            r = check_matmul(dev, gen, "lm_head", m, d, v, per_channel=True,
+                             x_float=True, axis_range=(-8, 9), timed=True,
+                             x_dtype=x_dtype)
+            rows["int8_matmul"].append({"model": LM_NAME, "batch": m, **r})
+    for tag, m, k, n, bits in LM_MATMUL_EXTRA:
+        r = check_matmul(dev, gen, tag, m, k, n, bits=bits, per_channel=True,
+                         x_float=True, axis_range=(-8, 9), timed=True)
+        rows["int8_matmul"].append({"model": LM_NAME, "batch": m, **r})
+    for sk in LM_SOFTMAX_SK:
+        for kind in ("causal", "per_lane"):
+            rows["lut_softmax"].append(check_masked_softmax(
+                dev, gen, kind, sk, cfg.n_heads, LM_SLOTS))
+    r = check_attention(dev, gen, LM_ATTENTION, True, True, timed=True,
+                        strided=True)
+    rows["lut_attention"].append({"model": LM_NAME, "batch": LM_ATTENTION[0],
+                                  **r})
+
 
 # ---------------------------------------------------------------------------
 # phase 4: the cost model and the rooflines on the card
@@ -933,9 +1076,10 @@ def phase_perf(dev, info: dict) -> None:
         eng = runtime.compile_model(
             cfg, convert.from_numpy_tree(trees[name], dev), backend="cuda",
             recipe=recipe, attention=attention, device=dev)
-        twin = perf_cost.cuda_plan_on_cpu(
-            cfg, convert.from_numpy_tree(trees[name], "cpu"), recipe=recipe,
-            attention=attention)
+        twin = runtime.compile_model(
+            cfg, convert.from_numpy_tree(trees[name], "cpu"), backend="cuda",
+            recipe=recipe, attention=attention, device="cpu",
+            plain_kernels=True)
         for b in batches:
             what = f"{name} {label} {attention} B={b}"
             before = ops.launch_counts()
@@ -960,8 +1104,9 @@ def phase_perf(dev, info: dict) -> None:
     eng = runtime.compile_model(cfg, convert.from_numpy_tree(trees["kwt-1"],
                                                              dev),
                                 backend="cuda", device=dev)
-    twin = perf_cost.cuda_plan_on_cpu(
-        cfg, convert.from_numpy_tree(trees["kwt-1"], "cpu"))
+    twin = runtime.compile_model(
+        cfg, convert.from_numpy_tree(trees["kwt-1"], "cpu"), backend="cuda",
+        device="cpu", plain_kernels=True)
     rep = perf.stream_hop_cost(eng, fcfg, batch=PERF_HOP_LANES)
     cost = require_same_cost("kwt-1 hop", rep, perf.stream_hop_cost(
         twin, fcfg, batch=PERF_HOP_LANES))
@@ -1883,6 +2028,336 @@ def phase_train_kwt_1(dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phases 13 + 14: the dense LM
+# ---------------------------------------------------------------------------
+
+LM_SERVE_ARGS = ["--arch", LM_NAME, "--backend", "cuda", "--requests", "8",
+                 "--slots", str(LM_SLOTS), "--max-len", "256", "--seed", "0"]
+LM_PREFILL_LEN = 64           # fixed pad width of the order-invariance runs
+LM_CHECK_TOKENS = (2, 64)     # decode == forward, cuda against lut
+LM_FLASH_TOKENS = (2, 1024)   # flash_lut against xla: the kernel row's shape
+LM_TIMED = 20                 # decode steps (and 5 prefills) per p50
+# prefill of S - 1 tokens + one decode step (caches of S slots) against
+# forward's last logits.  tools/lm_decode_gap.py takes the gap apart
+# (PERF.md §6): on the same weights with float32 activations and the
+# exact softmax and SiLU, decode == forward to the bit at the logits (1.4e-6
+# at every layer); a bf16 residual stream, the LUT bins and the head's eq-9
+# codes each turn the float32 products' other rounding at other row counts
+# into steps that 24 random layers carry on.  Measured on the card: 0.0405
+# on the cuda plan (0.0638 while its float32 keys and values were rounded
+# into a bf16 cache, ROADMAP C7), 0.0138 on the bf16 float plan; greedy
+# tokens equal.  So the cuda plan is held to LM_DECODE_REL with its argmax,
+# and the float plan at float32 activations, whose products round apart by
+# ulps only, to the reference's rel 1e-4 (tests/test_models.py): a fault in
+# the cache write, the masks or the positions shows there unblurred.
+LM_DECODE_REL = 0.06
+LM_REF_DECODE_REL = 1e-4
+# the flash-LUT forward against the sdpa forward of the same cuda plan at
+# B = 2, S = 1024 (online LUT softmax against the Q8.24 one, renormalised):
+# measured 0.180 max abs, argmax agreement 0.964 on the card (PERF.md)
+LM_FLASH_ATOL = 0.5
+LM_FLASH_MIN_ARGMAX = 0.9
+# the five dense smoke configs (float32 activations): decode == forward on
+# the card within the reference's rel 1e-4 on every plan (measured at most
+# 2.1e-7 float, 0.0 lut and cuda); the card against the same plan on the
+# CPU, the float plan to 1e-4 (measured at most 4.3e-6), the integer plans
+# to LM_SMOKE_CODE_FLIPS of the head's eq-9 input steps (one code of the
+# head's input moves a logit by at most max|W_head| * 2^-input_exponent,
+# 0.0159 for internlm2's smoke head): the card's and the host's float32
+# products round apart, and that once moved one code, a logit by 0.0103,
+# on lut (cuda: 0.0)
+LM_SMOKE_FLOAT_ATOL = 1e-4
+LM_SMOKE_CODE_FLIPS = 2
+LM_SMOKE_MIN_ARGMAX = 0.9
+
+
+def lm_expected(cfg, calls: int, attention: str = "xla") -> dict:
+    """Per LM call (``forward``, ``prefill`` or ``decode_step`` of at most
+    ``Q_CHUNK`` queries): one softmax per layer under ``xla`` (one attention
+    launch per layer under ``flash_lut``, forward only), one int8 matmul
+    (the packed head); no GELU (SiLU is the LUT, no kernel)."""
+    flash = attention == "flash_lut"
+    return {"lut_softmax": 0 if flash else cfg.n_layers * calls,
+            "lut_gelu": 0, "int8_matmul": calls,
+            "lut_attention": cfg.n_layers * calls if flash else 0}
+
+
+def run_lm_serve(argv: list) -> tuple:
+    """``launch.serve.main(argv)`` with its log lines returned, not
+    printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = lm_serve.main(argv)
+    return out, buf.getvalue()
+
+
+def lm_schedule(eng, requests, order) -> dict:
+    sched = cellmod.LMScheduler(eng, slots=LM_SLOTS, max_len=256,
+                                prefill_len=LM_PREFILL_LEN)
+    for j in order:
+        r = requests[j]
+        sched.submit(r["id"], r["prompt"], r["gen"])
+    return sched.run()
+
+
+def phase_lm_internlm2(dev, tmp: str) -> tuple:
+    """internlm2-1.8b at full width (24 layers, d 2048, 16 heads / 8 KV,
+    head_dim 128, d_ff 8192, vocab 92544, bf16; random weights drawn on the
+    card from the seed) served through ``repro_torch.launch.serve`` under
+    ``--backend cuda`` with tracing on: 8 requests on 4 slots; then, on the
+    same plan, prefill + decode against forward, the same requests in two
+    orders, cuda against lut, flash_lut against xla, p50 per decode step
+    and per prefill.  Returns the path's launches (the served run and the
+    ``flash_lut`` forward), the launches of the other checks, and the
+    path's expected."""
+    cfg = registry.get(LM_NAME).config
+    trace = os.path.join(tmp, "lm_serve.json")
+    argv = LM_SERVE_ARGS + ["--telemetry-out", trace]
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    served, log = run_lm_serve(argv)
+    seconds = time.perf_counter() - t0
+    path = _rise(before)
+    done = log_fields(log, "serve_done")
+    telemetry_check.check_artifacts(trace, require_metrics=True)
+    metrics = json.loads(Path(trace).with_suffix(".metrics.json").read_text())
+    steps_run = metrics["cell_decode_latency_ms"]["summary"]["n"]
+    prefills = metrics["cell_prefill_latency_ms"]["summary"]["n"]
+    expected = lm_expected(cfg, steps_run + prefills)
+    if path != expected:
+        raise AssertionError(f"the LM server launched {path}, expected "
+                             f"{expected} ({steps_run} decode steps, "
+                             f"{prefills} prefills)")
+    requests = lm_serve.make_requests(cfg, 8, 256, 0)
+    for r in requests:
+        got = served.get(r["id"], [])
+        if len(got) != r["gen"] or not all(0 <= t < cfg.vocab_size
+                                           for t in got):
+            raise AssertionError(f"request {r['id']}: {len(got)} tokens of "
+                                 f"{r['gen']}, or a pad id")
+    if metrics["cell_tokens_total"]["value"] != sum(r["gen"] for r in requests):
+        raise AssertionError("cell_tokens_total is not the tokens served")
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"phase": "lm_internlm2", "model": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype, "argv": argv,
+           "serve_seconds": seconds, "serve_done": done,
+           "tokens_served": {str(k): len(v) for k, v in served.items()},
+           "decode_steps": steps_run, "prefills": prefills,
+           "launches": path, "launches_per_call": lm_expected(cfg, 1),
+           "serve_peak_gb": serve_peak}
+
+    # the checks, on plans of the same seed's weights
+    checks = ops.launch_counts()
+    params = lm_model.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = runtime.compile_model(cfg, params, backend="cuda", device=dev)
+    out["describe"] = eng.describe()
+    out["param_bytes"], out["rom_bytes"] = eng.param_bytes, eng.rom_bytes
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, LM_CHECK_TOKENS).astype(np.int32)
+    fwd = eng.forward(toks)
+    if tuple(fwd.shape) != (*LM_CHECK_TOKENS, cfg.padded_vocab) or \
+            not bool(torch.isfinite(fwd).all()):
+        raise AssertionError(f"{cfg.name}: bad forward logits")
+    failures = []
+    # caches of exactly S slots: the decode's softmax rows are then as long
+    # as the forward's, with the same lanes masked (the cuda mode's masked
+    # rows depend on their length: the pre-shift, the clip-bin lanes)
+    out["decode_vs_forward"] = {}
+    plans = (("cuda", eng),
+             ("float", runtime.compile_model(cfg, params, backend="float",
+                                             device=dev)),
+             ("float32", runtime.compile_model(cfg.with_(dtype="float32"),
+                                               params, backend="float",
+                                               device=dev)))
+    for plan, e in plans:
+        f = fwd if e is eng else e.forward(toks)
+        state = e.init_decode_state(LM_CHECK_TOKENS[0], LM_CHECK_TOKENS[1])
+        _, state = e.prefill(toks[:, :-1], state)
+        # the same step with a per-lane index (the scheduler's scatter
+        # write and per-lane masks) must give the scalar step's bits
+        lanes = {"layers": {k: v.clone() for k, v in state["layers"].items()},
+                 "index": torch.full((LM_CHECK_TOKENS[0],), state["index"],
+                                     dtype=torch.long, device=dev)}
+        dec, _ = e.decode_step(toks[:, -1], state)
+        dec_lanes, _ = e.decode_step(toks[:, -1], lanes)
+        last = f[:, -1].float()
+        rel = float((dec.float() - last).abs().max() / last.abs().max())
+        out["decode_vs_forward"][plan] = {
+            "rel": rel, "argmax_equal": bool(torch.equal(dec.argmax(-1),
+                                                         last.argmax(-1))),
+            "per_lane_equal": bool(torch.equal(dec, dec_lanes))}
+        del f, state, lanes, dec, dec_lanes, e
+    del plans
+    dvf = out["decode_vs_forward"]
+    for plan, lim in (("cuda", LM_DECODE_REL), ("float32", LM_REF_DECODE_REL)):
+        if dvf[plan]["rel"] >= lim or not dvf[plan]["argmax_equal"]:
+            failures.append(f"{plan}: prefill + decode_step against forward: "
+                            f"{dvf[plan]}, over {lim} or another greedy "
+                            "token")
+    if not all(v["per_lane_equal"] for v in dvf.values()):
+        failures.append(f"a per-lane decode step differs from the scalar "
+                        f"one: {dvf}")
+    # the same requests in two orders: equal tokens per request
+    a = lm_schedule(eng, requests, range(len(requests)))
+    b = lm_schedule(eng, requests, reversed(range(len(requests))))
+    if a != b or sorted(a) != [r["id"] for r in requests]:
+        failures.append("tokens depend on the submission order")
+    out["order_invariant_requests"] = len(a)
+    # p50 per decode step and per prefill, 4 slots, and ATen ops per step
+    state = eng.init_decode_state(LM_SLOTS, 256)
+    ptoks = rng.integers(0, cfg.vocab_size, (LM_SLOTS, 63)).astype(np.int32)
+    pre = []
+    for _ in range(5):
+        st = eng.init_decode_state(LM_SLOTS, 256)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = eng.prefill(ptoks, st)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    state = st
+    cur = logits.argmax(-1)
+    dsteps = []
+    for _ in range(LM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = eng.decode_step(cur, state)
+        cur = logits.argmax(-1)
+        torch.cuda.synchronize()
+        dsteps.append((time.perf_counter() - t0) * 1e3)
+    with CountOps() as counter:
+        eng.decode_step(cur, state)
+    out.update(p50_prefill_ms=statistics.median(pre),
+               prefill_tokens=list(ptoks.shape),
+               p50_decode_step_ms=statistics.median(dsteps),
+               decode_tok_s=LM_SLOTS / (statistics.median(dsteps) / 1e3),
+               aten_ops_per_decode_step=counter.n)
+    # cuda against lut on the card (by design apart: the masked
+    # renormalisation), flash_lut against xla
+    lut = runtime.compile_model(cfg, params, backend="lut", device=dev)
+    lut_logits = lut.forward(toks)
+    del lut
+    out["cuda_vs_lut"] = {
+        "max_abs": float((fwd - lut_logits).abs().max()),
+        "argmax_agree": float((fwd.argmax(-1) == lut_logits.argmax(-1))
+                              .float().mean())}
+    del lut_logits
+    flash = runtime.compile_model(cfg, params, backend="cuda",
+                                  attention="flash_lut", device=dev)
+    del params
+    ftoks = rng.integers(0, cfg.vocab_size, LM_FLASH_TOKENS).astype(np.int32)
+    # the flash_lut forward is the path's too (a user's Engine.forward)
+    before = ops.launch_counts()
+    f_logits = flash.forward(ftoks)
+    flash_rose = _rise(before)
+    if flash_rose != lm_expected(cfg, 1, "flash_lut"):
+        failures.append(f"flash_lut forward launched {flash_rose}")
+    x_logits = eng.forward(ftoks)
+    agree = float((f_logits.argmax(-1) == x_logits.argmax(-1)).float().mean())
+    out["flash_vs_xla"] = {"tokens": list(LM_FLASH_TOKENS),
+                           "max_abs": float((f_logits - x_logits).abs().max()),
+                           "argmax_agree": agree}
+    if not bool(torch.isfinite(f_logits).all()) or agree < LM_FLASH_MIN_ARGMAX \
+            or out["flash_vs_xla"]["max_abs"] > LM_FLASH_ATOL:
+        failures.append(f"flash_lut forward against xla: "
+                        f"{out['flash_vs_xla']}")
+    del f_logits, x_logits, flash, eng
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    checks = {k: v - flash_rose[k] for k, v in _rise(checks).items()}
+    path = {k: path[k] + flash_rose[k] for k in path}
+    expected = {k: expected[k] + v
+                for k, v in lm_expected(cfg, 1, "flash_lut").items()}
+    out.update(check_launches=checks, launches=path, failures=failures)
+    emit(out)
+    if failures:
+        raise AssertionError(f"{cfg.name}: " + "; ".join(failures))
+    return path, checks, expected
+
+
+def seeded_lm_params(cfg, seed: int) -> dict:
+    """Every leaf of the port's LM layout random, from a numpy seed
+    (matrices fan-in scaled, biases small, norm scales around 1)."""
+    layout = lm_model.init_params(cfg, torch.Generator().manual_seed(seed),
+                                  "cpu")
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, stacked=False, norm=False):
+        if isinstance(tree, dict):
+            return {k: walk(v, stacked or k == "blocks",
+                            norm or k in ("ln1", "ln2", "ln_f", "q_norm",
+                                          "k_norm")) for k, v in tree.items()}
+        shape = tuple(tree.shape)
+        per = shape[1:] if stacked else shape
+        if norm:
+            return rng.normal(1.0, 0.1, shape).astype(np.float32)
+        scale = 1.0 / np.sqrt(per[0]) if len(per) > 1 else 0.1
+        return rng.normal(0, scale, shape).astype(np.float32)
+
+    return walk(layout)
+
+
+def phase_lm_smoke(dev) -> dict:
+    """The five dense smoke configs on the card under float, lut and
+    cuda: decode == forward, and each plan against the same plan on the
+    CPU (the cuda plan there through its kernels' plain versions); the
+    cuda plan's launches per call."""
+    out = {"phase": "lm_dense_smoke", "configs": []}
+    failures = []
+    for name in registry.DENSE:
+        cfg = registry.get(name).smoke
+        np_tree = seeded_lm_params(cfg, 0)
+        toks = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        row = {"model": name, "plans": {}}
+        for plan in ("float", "lut", "cuda"):
+            eng = runtime.compile_model(
+                cfg, convert.from_numpy_tree(np_tree, dev), backend=plan,
+                device=dev)
+            cpu = runtime.compile_model(
+                cfg, convert.from_numpy_tree(np_tree, "cpu"), backend=plan,
+                device="cpu", plain_kernels=plan == "cuda")
+            before = ops.launch_counts()
+            fwd = eng.forward(toks)
+            state = eng.init_decode_state(*toks.shape)   # rows as forward's
+            _, state = eng.prefill(toks[:, :-1], state)
+            dec, _ = eng.decode_step(toks[:, -1], state)
+            rose = _rise(before)
+            want = lm_expected(cfg, 3) if plan == "cuda" else \
+                {k: 0 for k in rose}
+            if rose != want:
+                failures.append(f"{name} {plan}: launched {rose}, expected "
+                                f"{want}")
+            rel = float((dec - fwd[:, -1]).abs().max()
+                        / fwd[:, -1].abs().max())
+            on_cpu = cpu.forward(toks)
+            diff = float((fwd.cpu() - on_cpu).abs().max())
+            agree = float((fwd.cpu().argmax(-1) == on_cpu.argmax(-1))
+                          .float().mean())
+            if plan == "float":
+                atol = LM_SMOKE_FLOAT_ATOL
+            else:
+                head = quant.resident_values(cpu.params["lm_head"])
+                atol = LM_SMOKE_CODE_FLIPS * float(head.abs().max()) \
+                    * 2.0 ** -cpu.exec_cfg.quant.input_exponent
+            row["plans"][plan] = {"decode_vs_forward_rel": rel,
+                                  "card_vs_cpu_max_abs": diff,
+                                  "card_vs_cpu_atol": atol,
+                                  "card_vs_cpu_argmax_agree": agree}
+            ok = rel < LM_REF_DECODE_REL and diff <= atol and \
+                agree >= LM_SMOKE_MIN_ARGMAX
+            if not ok:
+                failures.append(f"{name} {plan}: {row['plans'][plan]}")
+        out["configs"].append(row)
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the contract line
 # ---------------------------------------------------------------------------
 
@@ -1902,7 +2377,10 @@ TIMED_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
 # mode and both of its library calls (or _int_mm's refusal)
 EXTRA_KEYS = ("bytes_bound_ms", "input", "library_call", "int_mm_ms",
               "int_mm_device_ms", "int_mm_error", "f32_matmul_ms",
-              "f32_matmul_device_ms")
+              "f32_matmul_device_ms", "bf16_matmul_ms",
+              "bf16_matmul_device_ms", "pairs_per_head")
+LM_ROW_KEYS = ("variant", "tag", "batch", "shape", "shape_mkn",
+               "shape_bhhlld", "max_abs_err") + TIMED_KEYS + EXTRA_KEYS
 
 
 def _variants(rows: list, model: str, batch: int, tag) -> list:
@@ -1967,7 +2445,11 @@ def kernels_line(rows: dict, launches: dict, expected: dict,
             "model": headline_model, "batch": headline_batch,
             "equal": all(r["equal"] for r in rows[name]),
             "variants": _variants(rows[name], headline_model, headline_batch,
-                                  head.get("tag"))})
+                                  head.get("tag")),
+            # the timed rows at the dense LM's shapes
+            "lm": [{k: r[k] for k in LM_ROW_KEYS if k in r}
+                   for r in rows[name]
+                   if r.get("model") == LM_NAME and "ms" in r]})
     return {"kernels": entries}
 
 
@@ -2036,6 +2518,22 @@ def main() -> None:
     if launches["train"] != runs_rose:
         raise AssertionError(f"train launches {launches['train']} are not "
                              f"those of its runs, {runs_rose}")
+
+    # the LM path: the LM server's run (internlm2-1.8b at full width) and
+    # one flash_lut forward, less the launches of the checks the phase makes
+    # besides; then the five dense smoke configs, whose launches are checks
+    # of no path
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_",
+                                     dir=build.build_dir()) as tmp:
+        lm_rose, lm_checks, lm_exp = phase_lm_internlm2(dev, tmp)
+    counted = ops.launch_counts()
+    launches["lm"] = {n: counted[n] - lm_checks[n] for n in counted}
+    expected["lm"] = lm_exp
+    if launches["lm"] != lm_rose:
+        raise AssertionError(f"lm launches {launches['lm']} are not those of "
+                             f"its served run and flash forward, {lm_rose}")
+    phase_lm_smoke(dev)
 
     emit(kernels_line(rows, launches, expected, "kwt-1", 64))
     print(info["nvidia_smi"], flush=True)

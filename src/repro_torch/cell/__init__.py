@@ -1,6 +1,9 @@
 """repro_torch.cell — the serving cell: everything between a request and
 an Engine.
 
+* :mod:`repro_torch.cell.scheduler` — continuous batching for LM lanes:
+  per-lane decode depth, in-flight join via fresh prefill + per-lane
+  state merge, per-slot EOS/evict, no drain barrier.
 * :mod:`repro_torch.cell.admission` — bounded queues, token-bucket rate
   limiting, deadline shedding, and the cell-wide chunk-hops degrade
   stage, every decision a ``cell_admission_total`` counter.
@@ -11,11 +14,8 @@ an Engine.
   freshly published packed artifact, warm it, gate it on probe-logit
   parity, install it atomically without dropping lanes.
 * :mod:`repro_torch.cell.cell`      — :class:`ServeCell` composing the
-  above; ``launch/stream_serve.py`` is a thin CLI over it.
-
-The reference's LM lanes (``cell/scheduler.py``: ``LMScheduler``,
-continuous batching of decode requests) need ``models.transformer`` and
-wait for ROADMAP queue A item 3; ``ServeCell.lm_scheduler`` raises.
+  above; ``launch/stream_serve.py`` and ``launch/serve.py`` are thin CLIs
+  over it.
 """
 
 from repro_torch.cell.admission import (AdmissionConfig, AdmissionController,
@@ -24,7 +24,9 @@ from repro_torch.cell.cell import ServeCell, StreamLanes
 from repro_torch.cell.hotswap import (CheckpointWatcher, SwapRejected,
                                       hot_swap, poll_and_swap)
 from repro_torch.cell.pipeline import HopPipeline
+from repro_torch.cell.scheduler import LMScheduler, Request, TokenEvent
 
 __all__ = ["AdmissionConfig", "AdmissionController", "CheckpointWatcher",
-           "Decision", "HopPipeline", "ServeCell", "StreamLanes",
-           "SwapRejected", "hot_swap", "poll_and_swap"]
+           "Decision", "HopPipeline", "LMScheduler", "Request", "ServeCell",
+           "StreamLanes", "SwapRejected", "TokenEvent", "hot_swap",
+           "poll_and_swap"]

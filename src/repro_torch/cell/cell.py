@@ -5,8 +5,8 @@ One cell owns:
 * a swap-safe :class:`runtime.EngineHandle` (``cell.hotswap`` replaces
   the Engine under it without touching lane state),
 * a pool of ``slots`` batch lanes — streaming-KWS lanes
-  (:class:`StreamLanes`, the engine+detector hop); the reference's LM
-  request lanes wait for the LM families (ROADMAP queue A item 3),
+  (:class:`StreamLanes`, the engine+detector hop) or LM request lanes
+  (:class:`cell.scheduler.LMScheduler`, continuous batching of decode),
 * an :class:`cell.admission.AdmissionController` in front of the lanes,
 * the ``cell_*`` metric bundle on the run's telemetry registry,
 * optionally a :class:`cell.hotswap.CheckpointWatcher` on a directory
@@ -16,7 +16,7 @@ One cell owns:
 Entering the cell (``with cell:``) activates the host mesh and the
 ``dist.ctx`` data-parallel context, which are no-ops on the port's one
 device (ROADMAP queue A item 4 brings meshes).  ``launch/stream_serve.py``
-is a thin CLI over this class.
+and ``launch/serve.py`` are thin CLIs over this class.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from repro_torch import telemetry
 from repro_torch.cell import admission as admission_mod
 from repro_torch.cell import hotswap as hotswap_mod
 from repro_torch.cell import pipeline as pipeline_mod
+from repro_torch.cell import scheduler as scheduler_mod
 from repro_torch.dist import ctx
 from repro_torch.launch import mesh as meshlib
 from repro_torch.stream import detector as det
@@ -107,11 +108,11 @@ class ServeCell:
                            feature_ingest=feature_ingest)
 
     def lm_scheduler(self, *, max_len: int, eos_id: Optional[int] = None,
-                     prefill_len: Optional[int] = None):
-        raise NotImplementedError(
-            "ServeCell.lm_scheduler: LMScheduler (cell/scheduler.py) needs "
-            "models.transformer, which waits for ROADMAP queue A item 3 (LM "
-            "families)")
+                     prefill_len: Optional[int] = None
+                     ) -> scheduler_mod.LMScheduler:
+        return scheduler_mod.LMScheduler(
+            self.handle, slots=self.slots, max_len=max_len, eos_id=eos_id,
+            prefill_len=prefill_len, metrics=self.metrics)
 
     # -- checkpoint hot-swap ----------------------------------------------
 

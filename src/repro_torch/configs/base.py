@@ -24,15 +24,16 @@ class QuantConfig:
     bits: int = 8                 # stored weight width; <=4 nibble-packs
     residual_bits: int = 16       # paper: INT16 intermediates
     softmax_mode: str = "lut"     # "exact" | "lut" | "lut_fixed"
-    act_mode: str = "lut"         # LUT GELU
-    quantize_kv_cache: bool = False
-    per_channel: Optional[bool] = None  # None: registry default (kwt scalar)
+    act_mode: str = "lut"         # LUT GELU / SiLU
+    quantize_kv_cache: bool = False   # int8 KV cache (not ported yet)
+    per_channel: Optional[bool] = None  # None: registry default (LM-scale
+    #                                     families per-channel, kwt scalar)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # kwt (the LM families are a later slice)
+    family: str                   # dense | moe | rwkv | hybrid | encdec | kwt
     n_layers: int
     d_model: int
     n_heads: int
@@ -83,8 +84,8 @@ class ModelConfig:
     # --- compile / distribution knobs (field-set parity; unread) ---
     remat: bool = True
     scan_layers: bool = True
-    attn_impl: str = "xla"        # xla: plain einsum attention; flash_lut
-    #                               belongs to a later slice
+    attn_impl: str = "xla"        # xla: plain einsum attention; flash_lut:
+    #                               the flash-LUT attention (kernels.ops)
     seq_shard_activations: bool = False
     scores_dtype: str = "float32"
     pure_fsdp: bool = False
@@ -96,6 +97,20 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 128; the head masks the pad
+        logits to -1e30."""
+        return -(-self.vocab_size // 128) * 128
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "rwkv"
+
+    @property
+    def subquadratic(self) -> bool:
+        return self.family in ("rwkv", "hybrid") or self.sliding_window > 0
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -106,6 +121,18 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str                     # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+LM_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
 @dataclasses.dataclass(frozen=True)

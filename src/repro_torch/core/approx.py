@@ -33,8 +33,11 @@ The dispatchers also emit the quantisation-health taps
 (``telemetry.taps``): one module-global check, nothing else, unless an
 Engine's taps pass is collecting.
 
-Not ported yet: the reference's SiLU / softplus / squared-ReLU family and
-its bf16 softmax branch (ROADMAP queue A item 3, the LM families).
+The dense LMs' activations are here too: the bounded-domain sigmoid LUT
+behind ``silu`` and the squared ReLU.  As in the reference, SiLU has no
+kernel: its ``cuda`` mode is the LUT below.  Not ported yet: softplus
+(the hybrid family) and the bf16 exact-softmax branch, which no plan
+reaches while ``scores_dtype`` is float32 (ROADMAP queue A item 3).
 """
 
 from __future__ import annotations
@@ -348,14 +351,65 @@ def gelu(x: torch.Tensor, mode: str = "exact", **kw) -> torch.Tensor:
     return ste(primal, gelu_exact)(x)
 
 
+# ---------------------------------------------------------------------------
+# Beyond-paper: the same bounded-domain LUT method for SiLU (sigmoid), and
+# the squared ReLU, for the dense LMs
+# ---------------------------------------------------------------------------
+
+_SIG_RANGE = 8.0
+_SIG_ENTRIES = 256
+
+
+def _sigmoid_table() -> np.ndarray:
+    """256 sigmoid samples over [-8, 8], float32 (the reference's table:
+    computed in float64 by numpy, then rounded)."""
+    z = np.linspace(-_SIG_RANGE, _SIG_RANGE, _SIG_ENTRIES)
+    return (1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sigmoid_tensor(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_sigmoid_table()).to(device)
+
+
+def sigmoid_lut(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-entry sigmoid: 1 above 8, 0 below -8, the table between."""
+    tab = _sigmoid_tensor(x.device)
+    t = (x.to(torch.float32) + _SIG_RANGE) * \
+        ((_SIG_ENTRIES - 1) / (2 * _SIG_RANGE))
+    idx = torch.round(t).to(torch.int32).clamp(0, _SIG_ENTRIES - 1).long()
+    return torch.where(x > _SIG_RANGE, 1.0,
+                       torch.where(x < -_SIG_RANGE, 0.0, tab[idx]))
+
+
+def silu_exact(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(x.to(torch.float32))
+
+
+def silu(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
+    if mode == "exact":
+        return silu_exact(x)
+    return ste(lambda v: v.to(torch.float32) * sigmoid_lut(v), silu_exact)(x)
+
+
+def sqrelu(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU (nemotron-4): a polynomial, no LUT."""
+    r = x.clamp(min=0.0)
+    return r * r
+
+
 def activation(name: str, mode: str = "exact"):
-    """Resolve an activation by config name, honouring the approx mode."""
+    """Resolve an activation by config name, honouring the approx mode.
+    The kernels cover GELU and softmax: a ``cuda`` SiLU is the LUT, as the
+    reference's ``pallas`` one is."""
     if name == "gelu":
         if mode == "cuda":
             return lambda x: gelu(x, mode="cuda")
         return lambda x: gelu(x, mode="lut" if mode != "exact" else "exact")
-    if name in ("silu", "sqrelu", "relu"):
-        raise NotImplementedError(
-            f"activation {name!r} serves the LM families, ROADMAP queue A "
-            "item 3, not ported yet")
+    if name == "silu":
+        return lambda x: silu(x, mode="lut" if mode == "cuda" else mode)
+    if name == "sqrelu":
+        return sqrelu
+    if name == "relu":
+        return lambda x: x.clamp(min=0.0)
     raise ValueError(f"unknown activation {name!r}")

@@ -379,8 +379,9 @@ def int_exec_einsum(eq: str, x: torch.Tensor, w: QTensor, *,
     if use_kernel:
         if transpose_w:
             raise NotImplementedError(
-                "the weight-last (tied-head) layout belongs to the LM slice "
-                "of the port; the CUDA int8 matmul takes [K, N] weights")
+                "the weight-last (tied-head) layout waits for ROADMAP queue "
+                "B, B1 (the encdec family ties its head): the CUDA int8 "
+                "matmul takes [K, N] weights")
         from repro_torch.kernels import ops as _kops
         # the float activation goes in as it is: the kernel quantises it
         return _kops.int8_matmul(x, w, x_exp=x_exp, x_bits=x_bits,
@@ -423,6 +424,19 @@ def int_exec_qkv(x: torch.Tensor, ws, *, x_exp: int, x_bits: int = 8,
         axis = torch.cat(cols)
     out = requant(acc, x_exp, e0, axis)
     return torch.split(out, [w.shape[-1] for w in ws], dim=-1)
+
+
+def gather_descale(w: QTensor, idx: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup against the stored payload: gather integer ROWS,
+    then descale only what was looked up (exact po2 scales, so the rows
+    equal those of the dequantised table bit for bit).  The full table
+    never materialises as float — the LM embedding's integer-resident
+    path."""
+    rows = w.int_values()[idx.long()]
+    out = rows.to(torch.float32) * (2.0 ** (-w.exponent))
+    if w.axis_exponents is not None:
+        out = out * torch.exp2(-w.axis_exponents.to(torch.float32))
+    return out
 
 
 def dequantize_tree(tree: Pytree) -> Pytree:

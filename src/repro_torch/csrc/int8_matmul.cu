@@ -44,6 +44,19 @@
 //   rows keep the staging small enough for three blocks an SM.
 // Ragged M, K and N are masked in the kernel; nothing is padded in device
 // memory.
+//
+// K beyond 256 (the dense LMs' head: K = 2048, N = 92544, a few rows a
+// call) takes a second kernel, int8_matmul_kloop, which walks K in slabs
+// of 256 and keeps the mma accumulators across them, so that any K runs
+// and the epilogue (the same as above, bit for bit) runs once.  There the
+// weight is the bytes: each block owns a column block and up to 64 rows
+// (every row of a decode step), so each weight byte crosses device memory
+// once per call up to M = 64.  The weight slab lands as it lies in a ring
+// of two, the next in flight while this one is transposed in shared memory
+// and multiplied: by cp.async, 16 bytes a copy, for an int8 weight whose N
+// is a multiple of 16 (the head's); byte by byte for any other (an int4
+// payload, unpacked as it lands, or a ragged N).  Integer accumulation is
+// exact, so the slab order changes no bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,6 +88,7 @@ struct Args {
                           // float32 x row, in shared memory
   int nb, col_blocks;     // columns a block, column blocks
   int tiles, xvec, ovec;  // row tiles of BM; copy widths
+  int wnat;               // K loop: the weight slab copied 16 bytes a cp.async
 };
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
@@ -354,6 +368,10 @@ int8_matmul_kernel(const Args a) {
   }
 }
 
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 int sm_count() {
   static int cached[64];
   int dev = 0;
@@ -427,10 +445,258 @@ int launch_qf(Args& a, cudaStream_t stream) {
   }
 }
 
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+
+// ---------------------------------------------------------------------------
+// The K-looped kernel (K > kOneSlabK)
+// ---------------------------------------------------------------------------
+
+constexpr int kOneSlabK = 256;            // the one-slab kernel's K
+constexpr int LBM = 64;                   // rows a tile
+constexpr int LKS = 256;                  // K a slab
+constexpr int LRB = LKS + 16;             // bytes a staged row: 16 * odd
+constexpr int LWM = LBM / 16;             // 8 warps: LWM row strips of 16
+constexpr int LWN = 8 / LWM;              //   x LWN column groups
+
+// The weight slab as it lies in device memory (rows of k, NBP bytes a row,
+// the columns of this block).  a.wnat (an int8 weight, N a multiple of 16,
+// so cols is too): whole rows of cols bytes, 16 bytes a cp.async.  Else
+// byte by byte, an int4 payload unpacked (consecutive threads, consecutive
+// columns); those stores are plain, and the barrier before the slab's
+// transpose publishes them.
+template <int QF>
+__device__ __forceinline__ void issue_w_nat(const Args& a, int8_t* nat,
+                                            int n0, int cols, int k0, int kl) {
+  constexpr int NBP = LWN * QF * 8;
+  if (a.wnat) {
+    const int8_t* w = static_cast<const int8_t*>(a.w) + (long long)k0 * a.n + n0;
+    const int cpr = cols >> 4;
+    for (int i = threadIdx.x; i < kl * cpr; i += kThreads) {
+      const int r = i / cpr, c = (i - r * cpr) << 4;
+      cp_async(nat + r * NBP + c, w + (long long)r * a.n + c, 16);
+    }
+    return;
+  }
+  const uint8_t* w = static_cast<const uint8_t*>(a.w);
+  for (int i = threadIdx.x; i < kl * cols; i += kThreads) {
+    const int r = i / cols, c = i - r * cols;
+    const long long f = (long long)(k0 + r) * a.n + n0 + c;
+    nat[r * NBP + c] = a.w_int4
+        ? (int8_t)(((((int)w[f >> 1] >> ((int)(f & 1) * 4)) & 0xf) ^ 8) - 8)
+        : (int8_t)w[f];
+  }
 }
 
+// ... then N-major into ws: a thread gathers 16 k of one column a chunk
+// (consecutive threads, consecutive columns: each byte load of a warp is
+// one row's 32 consecutive bytes) and stores them as one 16-byte vector;
+// zero past kl, up to the pad to 32
+template <int QF>
+__device__ __forceinline__ void transpose_w_nat(const int8_t* nat, int8_t* ws,
+                                                int kl) {
+  constexpr int NBP = LWN * QF * 8;
+  const int chunks = ((kl + 31) & ~31) >> 4;
+#pragma unroll
+  for (int c = 0; c < QF; ++c) {
+    const int i = threadIdx.x + c * kThreads;
+    const int kc = i / NBP, nn = i - kc * NBP;
+    if (kc >= chunks) continue;
+    unsigned word[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int kk = kc * 16 + e;
+      if (kk < kl)
+        word[e >> 2] |= ((unsigned)(uint8_t)nat[kk * NBP + nn]) << ((e & 3) * 8);
+    }
+    *reinterpret_cast<uint4*>(ws + nn * LRB + kc * 16) =
+        make_uint4(word[0], word[1], word[2], word[3]);
+  }
+}
+
+// The x slab: rows [row0, row0 + rows) x [k0, k0 + kl) into xq (rows of
+// LRB bytes), 4 k a thread, quantised by eq 9 on the way if float32; zero
+// past kl up to the pad to 32.  a.xvec: one vector load for 4 k.
+__device__ __forceinline__ void stage_x_slab(const Args& a, int8_t* xq,
+                                             long long row0, int rows,
+                                             int k0, int kl) {
+  const int per_row = ((kl + 31) & ~31) >> 2;
+  const float lo = -(float)(1 << (a.x_bits - 1));
+  const float hi = (float)((1 << (a.x_bits - 1)) - 1);
+  const float* xf = static_cast<const float*>(a.x);
+  const int8_t* xi = static_cast<const int8_t*>(a.x);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) << 2;
+    const long long base = (row0 + r) * a.k + k0 + c;
+    unsigned word = 0u;
+    if (a.xvec && c + 4 <= kl) {
+      if (a.x_f32) {
+        const float4 f = *reinterpret_cast<const float4*>(xf + base);
+        word = (unsigned)(quant(f.x, a.x_scale, lo, hi) & 0xff)
+            | ((unsigned)(quant(f.y, a.x_scale, lo, hi) & 0xff) << 8)
+            | ((unsigned)(quant(f.z, a.x_scale, lo, hi) & 0xff) << 16)
+            | ((unsigned)(quant(f.w, a.x_scale, lo, hi) & 0xff) << 24);
+      } else {
+        word = *reinterpret_cast<const unsigned*>(xi + base);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (c + e < kl) {
+          const int v = a.x_f32 ? quant(xf[base + e], a.x_scale, lo, hi)
+                                : (int)xi[base + e];
+          word |= ((unsigned)v & 0xffu) << (8 * e);
+        }
+      }
+    }
+    *reinterpret_cast<unsigned*>(xq + r * LRB + c) = word;
+  }
+}
+
+// QF: n fragments of 8 a warp; a block covers LBM rows by LWN * QF * 8
+// columns, and walks its column block's row tiles and, in each, K's slabs.
+// The weight slab lands as it lies in a ring of two, the next one in
+// flight while this one is transposed and multiplied.
+template <int QF>
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_kloop(const Args a) {
+  extern __shared__ int4 smem16[];
+  constexpr int NBP = LWN * QF * 8;
+  int8_t* ws = reinterpret_cast<int8_t*>(smem16);            // [NBP][LRB]
+  int8_t* xq = ws + NBP * LRB;                                // [LBM][LRB]
+  int8_t* nat = xq + LBM * LRB;                               // [2][LKS][NBP]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int strip = warp % LWM, grp = warp / LWM;
+  const int cb = blockIdx.x % a.col_blocks;
+  const int n0 = cb * a.nb;
+  const int cols = min(a.nb, a.n - n0);
+  const int sharing = (int)gridDim.x / a.col_blocks;
+  const int first = blockIdx.x / a.col_blocks;
+  const int mine = first < a.tiles ? (a.tiles - 1 - first) / sharing + 1 : 0;
+  const int slabs = (a.k + LKS - 1) / LKS;
+  const bool has_cols = grp * QF * 8 < cols;                  // warp-uniform
+
+  int acc[QF][4];
+  if (mine > 0) issue_w_nat<QF>(a, nat, n0, cols, 0, min(LKS, a.k));
+  cp_commit();
+  for (int j = 0; j < mine * slabs; ++j) {
+    const int slab = j % slabs;
+    const long long row0 = (long long)(first + (j / slabs) * sharing) * LBM;
+    const int rows = (int)min((long long)LBM, a.m - row0);
+    const int k0 = slab * LKS, kl = min(LKS, a.k - k0);
+    if (slab == 0) {
+#pragma unroll
+      for (int f = 0; f < QF; ++f)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[f][c] = 0;
+    }
+    cp_wait<0>();                   // slab j landed
+    __syncthreads();                // ... and the last slab's fragments read
+    if (j + 1 < mine * slabs) {     // the next slab in flight meanwhile
+      const int nk0 = ((j + 1) % slabs) * LKS;
+      issue_w_nat<QF>(a, nat + ((j + 1) & 1) * LKS * NBP, n0, cols, nk0,
+                      min(LKS, a.k - nk0));
+    }
+    cp_commit();
+    stage_x_slab(a, xq, row0, rows, k0, kl);
+    transpose_w_nat<QF>(nat + (j & 1) * LKS * NBP, ws, kl);
+    __syncthreads();
+    const bool active = strip * 16 < rows && has_cols;
+    if (active) {
+      const int kp = (kl + 31) & ~31;
+      const int8_t* arow = xq + (strip * 16 + g) * LRB + 4 * t;
+      const int8_t* brow = ws + (grp * QF * 8 + g) * LRB + 4 * t;
+      for (int kk = 0; kk < kp; kk += 32) {
+        unsigned af[4];
+        af[0] = *reinterpret_cast<const unsigned*>(arow + kk);
+        af[1] = *reinterpret_cast<const unsigned*>(arow + 8 * LRB + kk);
+        af[2] = *reinterpret_cast<const unsigned*>(arow + kk + 16);
+        af[3] = *reinterpret_cast<const unsigned*>(arow + 8 * LRB + kk + 16);
+#pragma unroll
+        for (int f = 0; f < QF; ++f) {
+          const int8_t* bp = brow + f * 8 * LRB + kk;
+          mma_s8(acc[f], af, *reinterpret_cast<const unsigned*>(bp),
+                 *reinterpret_cast<const unsigned*>(bp + 16));
+        }
+      }
+    }
+    if (slab == slabs - 1 && active) {
+      // the epilogue of the one-slab kernel, stored from registers
+#pragma unroll
+      for (int f = 0; f < QF; ++f) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const long long row = row0 + strip * 16 + g + (c >> 1) * 8;
+          const int lc = (grp * QF + f) * 8 + 2 * t + (c & 1);
+          if (row >= a.m || lc >= cols) continue;
+          int v = acc[f][c];
+          if (a.shift > 0) v >>= a.shift;
+          else if (a.shift < 0) v = (int)((unsigned)v << (-a.shift));
+          if (a.clip16) v = v < -32768 ? -32768 : (v > 32767 ? 32767 : v);
+          const long long o = row * a.n + n0 + lc;
+          if (a.out_mode == 0) {
+            float fv = __fmul_rn(__int2float_rn(v), a.scale);
+            if (a.axis != nullptr) fv = __fmul_rn(fv, pow2_neg(a.axis[n0 + lc]));
+            static_cast<float*>(a.out)[o] = fv;
+          } else if (a.out_mode == 1) {
+            static_cast<int*>(a.out)[o] = v;
+          } else {
+            static_cast<short*>(a.out)[o] = (short)v;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int QF>
+int launch_kloop(Args& a, cudaStream_t stream) {
+  static bool opted = false;
+  static int bps = 0;
+  constexpr int NBP = LWN * QF * 8;
+  const long long bytes = (long long)(NBP + LBM) * LRB + 2LL * LKS * NBP;
+  if (!opted) {
+    if (cudaFuncSetAttribute(int8_matmul_kloop<QF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &bps, int8_matmul_kloop<QF>, kThreads, (size_t)bytes)
+            != cudaSuccess)
+      return (int)cudaErrorInvalidValue;
+    opted = true;
+  }
+  if (bps <= 0) return (int)cudaErrorInvalidValue;
+  const long long cap = (long long)bps * sm_count() / a.col_blocks;
+  const long long per_cb = a.tiles < cap ? a.tiles : (cap > 0 ? cap : 1);
+  const long long grid = per_cb * a.col_blocks;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int8_matmul_kloop<QF><<<(unsigned)grid, kThreads, (size_t)bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Columns a block: enough that a block's weight bytes are about four times
+// its x bytes (each column block reads x again), at most 64 (the ring then
+// fits three blocks an SM), halved while there are too few blocks to fill
+// the card.
+int launch_kloop_nb(Args& a, cudaStream_t stream) {
+  a.tiles = (a.m + LBM - 1) / LBM;
+  a.wnat = !a.w_int4 && a.n % 16 == 0 && aligned(a.w, 16);
+  const int rows = a.m < LBM ? a.m : LBM;
+  const int x_per_k = rows * (a.x_f32 ? 4 : 1);     // x bytes a k
+  int nb = 16;
+  // w bytes a k: nb, or nb / 2 for an int4 payload
+  while (nb < 64 && (a.w_int4 ? nb / 2 : nb) < 4 * x_per_k) nb *= 2;
+  while (nb > 16 && (long long)a.tiles * ((a.n + nb - 1) / nb) < 2LL * sm_count())
+    nb /= 2;
+  a.nb = nb;
+  a.col_blocks = (a.n + nb - 1) / nb;
+  a.xvec = a.k % 4 == 0 && aligned(a.x, a.x_f32 ? 16 : 4);
+  switch (nb / (LWN * 8)) {
+    case 1: return launch_kloop<1>(a, stream);
+    case 2: return launch_kloop<2>(a, stream);
+    default: return launch_kloop<4>(a, stream);
+  }
+}
 }  // namespace
 
 // x: int8 [m, k], or float32 [m, k] quantised in the kernel by eq 9 with
@@ -439,8 +705,8 @@ bool aligned(const void* p, int bytes) {
 // mode packs the flags (a launch costs the host less with fewer ctypes
 // arguments): bit 0 the INT16 clip, bits 1-2 the out_mode, bit 3 a float32
 // x, bit 4 an int4 w, bits 8-11 the activation's bits.
-// Refused (cudaErrorInvalidValue): a K whose tiles do not fit in shared
-// memory (K above about 1600 for int8 x, 600 for float32 x).
+// K up to 256 runs in one slab (int8_matmul_kernel), longer K in slabs of
+// 256 (int8_matmul_kloop).
 extern "C" int int8_matmul_launch(const void* x, const void* w, void* out,
                                   const int8_t* axis, int m, int k, int n,
                                   int shift, int mode, int out_exp, int x_exp,
@@ -457,6 +723,7 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, void* out,
   a.scale = ldexpf(1.0f, -out_exp);            // powers of two: exact
   a.x_f32 = x_f32; a.x_scale = ldexpf(1.0f, x_exp); a.x_bits = x_bits;
   a.w_int4 = w_int4;
+  if (k > kOneSlabK) return launch_kloop_nb(a, stream);
   a.kpad = (k + 31) / 32 * 32;
   a.rb = a.kpad + 16;               // 16 * odd bytes: conflict-free fragments
   a.kf = (k + 3) / 4 * 4;           // floats a staged float32 x row

@@ -587,6 +587,10 @@ int launch(Args& a, long long pairs, cudaStream_t stream) {
   int wpb = (groups + splits - 1) / splits;
   if (wpb > kMaxWarps) wpb = kMaxWarps;
   const int tiles = a.lk / a.bk;
+  // where two stages fit at no width (D = 128 with tiles of 128 keys, the
+  // dense LMs' causal attention), one stage, refilled after each step
+  const int wpb0 = wpb;
+  bool force_one = false;
   for (;;) {
     splits = (groups + wpb - 1) / wpb;
     const long long items = pairs * splits;
@@ -601,14 +605,20 @@ int launch(Args& a, long long pairs, cudaStream_t stream) {
         bytes1 <= kMaxSmem ? blocks_per_sm<DT, NT>(threads, bytes1) : 0;
     const int bps2 =
         bytes2 <= kMaxSmem ? blocks_per_sm<DT, NT>(threads, bytes2) : 0;
-    const bool one = tiles == 1 && (bps1 >= 2 * bps2 || items <= (long long)bps1 * sms);
+    const bool one = force_one ||
+        (tiles == 1 && (bps1 >= 2 * bps2 || items <= (long long)bps1 * sms));
     const int stages = one ? 1 : 2;
     const long long bytes = one ? bytes1 : bytes2;
     const int bps = one ? bps1 : bps2;
     const long long cap = (long long)bps * sms;
     const long long grid = items < cap ? items : cap;
     if (bps <= 0) {
-      if (wpb == 1) return (int)cudaErrorInvalidValue;
+      if (wpb == 1) {
+        if (force_one) return (int)cudaErrorInvalidValue;
+        force_one = true;
+        wpb = wpb0;
+        continue;
+      }
       wpb = (wpb + 1) / 2;
       continue;
     }

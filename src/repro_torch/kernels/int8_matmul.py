@@ -6,6 +6,10 @@ The kernel takes its operands as they are stored: the activation as int8,
 or as float32 that it quantises itself by eq 9 (what the ``cuda`` plans
 pass), the weight as int8 or as the nibble-packed int4 payload of a
 ``QTensor`` (unpacked as it is staged), the per-column exponents as int8.
+Any K: up to 256 in one slab of shared memory, beyond that (the LM head's
+K = 2048) in slabs of 256 with the accumulators kept across them.  A
+bfloat16 activation is cast to float32 before the launch (exact, as
+``quant.quantize_act`` does).
 Plain versions: :func:`ref.int8_matmul_raw` and :func:`ref.int8_matmul_io`.
 :func:`pow2_neg` and :func:`nibble_grid` are the kernel's column scale and
 int4 staging written out in torch, for the tests.
@@ -94,8 +98,7 @@ def _run(x, w, *, n, shift, clip16, out_mode, out_exp, axis, x_exp, x_bits,
         axis = axis.to(torch.int8).contiguous()
     st = _launch.state(idx)
     mode = clip16 | out_mode << 1 | x_f32 << 3 | w_int4 << 4 | x_bits << 8
-    _launch.launch(st, st.lib.int8_matmul_launch, "int8_matmul (K too long "
-                   "for its tiles in shared memory?)",
+    _launch.launch(st, st.lib.int8_matmul_launch, "int8_matmul",
                    x.data_ptr(), w.data_ptr(), out.data_ptr(),
                    None if axis is None else axis.data_ptr(),
                    m, k, n, shift, mode, out_exp, x_exp if x_f32 else 0)

@@ -1,5 +1,5 @@
-"""Shared transformer layers, KWT subset: LayerNorm, cacheless attention,
-ungated MLP.
+"""Shared transformer layers: norms, RoPE, GQA attention with a KV cache,
+(gated) MLP — for KWT and the dense decoder-only LMs.
 
 Functional style: ``*_params(cfg, generator)`` builds a dict of weights,
 ``apply_*`` runs the math on ``[B, T, d]`` tensors.  The paper's technique
@@ -10,13 +10,18 @@ QTensor weights (int8 / nibble-packed int4).
 Cacheless attention runs either the plain einsum path (``sdpa``,
 ``cfg.attn_impl == "xla"``) or the flash-LUT attention
 (``attn_impl == "flash_lut"``): the hand-written kernel on the ``cuda``
-plan, its plain version on every other plan.
+plan, its plain version on every other plan.  Attention over a KV cache
+(``prefill`` / ``decode_step`` of ``models.transformer``) always takes
+``sdpa``, with causal masks, per-lane query offsets and validity bounds,
+as the reference does.  The cache is updated in place (the reference
+returns new caches): the layer writes this call's keys and values into
+the caller's tensors and returns the same tensors.
 
 ``apply_attention`` and ``apply_mlp`` emit the quantisation-health taps
 of their inputs (``telemetry.taps``; a no-op without a collector).
 
-Waiting for ROADMAP queue A item 3 (LM families): RMSNorm, RoPE, qk-norm,
-GQA KV caches, sliding windows, query-chunked attention and gated MLPs.
+Not ported yet (ROADMAP queue A item 3): the int8 KV cache and sliding
+windows; both raise.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from repro_torch.core import approx
 from repro_torch.core import quant
 from repro_torch.telemetry import taps as _health
 
-_LATER = "is not ported yet: it waits for ROADMAP queue A item 3 (LM families)"
+_LATER = "is not ported yet: it waits for ROADMAP queue A item 3"
 
 
 def executes_int(w, eq: str, cfg) -> bool:
@@ -60,7 +65,21 @@ def linear(x, w, eq: str, cfg=None):
             use_kernel=(cfg.act_approx == "cuda"))
     if isinstance(w, quant.QTensor):
         return quant.qt_einsum(eq, x, w)
+    if x.dtype != w.dtype:      # jnp.einsum promotes (bf16 x f32 -> f32)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     return torch.einsum(eq, x, w)
+
+
+def embed_rows(embed, tokens):
+    """Embedding lookup, table either float or a stored-integer QTensor.
+
+    QTensor tables gather integer rows and descale only what was looked
+    up (``quant.gather_descale``); the full table never materialises as
+    float."""
+    if isinstance(embed, quant.QTensor):
+        return quant.gather_descale(embed, tokens)
+    return embed[tokens.long()]
 
 
 def asfloat(w):
@@ -74,10 +93,13 @@ def _dtype(cfg):
 
 
 def he(generator, shape, scale, dtype, device="cpu"):
-    """Scaled-normal initialiser.  Drawn on the CPU from ``generator``
-    (one stream of numbers whatever the target device), then moved."""
+    """Scaled-normal initialiser.  Drawn from ``generator`` on the
+    generator's own device (a CPU generator gives one stream of numbers
+    whatever the target device; a CUDA one draws full-width LM weights on
+    the card), then moved."""
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
-    w = torch.randn(shape, generator=generator, dtype=torch.float32)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
     return (w * (scale / np.sqrt(fan_in))).to(dtype).to(device)
 
 
@@ -87,25 +109,46 @@ def he(generator, shape, scale, dtype, device="cpu"):
 
 def norm_params(cfg, d=None, device="cpu"):
     d = d or cfg.d_model
-    if cfg.norm != "layernorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} {_LATER}")
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
-            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+                "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
 def apply_norm(p, x, cfg, eps=1e-6):
-    if cfg.norm != "layernorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} {_LATER}")
     x = x.to(torch.float32)
-    # paper eqs (4)-(5): mean/variance normalise, then gamma/beta.
-    mu = x.mean(dim=-1, keepdim=True)
-    var = x.var(dim=-1, keepdim=True, unbiased=False)
-    y = (x - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(_dtype(cfg))
+    if cfg.norm == "layernorm":
+        # paper eqs (4)-(5): mean/variance normalise, then gamma/beta.
+        mu = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, unbiased=False)
+        y = (x - mu) * torch.rsqrt(var + eps)
+        return (y * p["scale"] + p["bias"]).to(_dtype(cfg))
+    ms = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(ms + eps) * p["scale"]).to(_dtype(cfg))
 
 
 # ---------------------------------------------------------------------------
-# Attention (cacheless; full or causal)
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions [S] (or [B,S]) -> cos/sin tables [..., S, head_dim//2]."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x [..., S, H, D]; cos/sin broadcastable [..., S, 1, D/2]."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional qk-norm / qkv-bias / KV cache)
 # ---------------------------------------------------------------------------
 
 def attention_params(cfg, generator, device="cpu"):
@@ -124,45 +167,129 @@ def attention_params(cfg, generator, device="cpu"):
     if cfg.bias:
         p["bo"] = torch.zeros((d,), dtype=dt, device=device)
     if cfg.qk_norm:
-        raise NotImplementedError(f"qk_norm {_LATER}")
+        p["q_norm"] = torch.ones((dh,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((dh,), dtype=torch.float32, device=device)
     return p
 
 
-def sdpa(q, k, v, cfg, *, causal=True):
-    """Masked GQA attention in one tile.  q [B,Sq,H,D]; k/v [B,Sk,KV,D].
+def _rms(x, scale, eps=1e-6):
+    x = x.to(torch.float32)
+    return x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps) * scale
 
-    The float score product and P·V are outside any hand-written kernel
-    in the reference as well and stay plain einsums; the softmax between
-    them is ``approx.masked_softmax`` in the plan's mode.
+
+Q_CHUNK = 512       # query-chunked attention: bounds the score tile
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, with no op where it already is (each op costs the
+    host a dispatch on the small KWT shapes)."""
+    return t if t.dtype == torch.float32 else t.to(torch.float32)
+
+
+def _per_lane(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.ndim == 1
+
+
+def _sdpa_block(q, k, v, cfg, *, q0, k0, q_offset, kv_len_valid, causal):
+    """One [qc, kc] tile of masked attention.  q [B,qc,H,D]; k/v [B,kc,KV,D].
+
+    ``q0`` / ``k0``: tile offsets within the (chunked) sequence;
+    ``q_offset``: absolute position of the sequence start — an int, or a
+    per-lane [B] tensor when lanes decode at their own depths (the
+    ``cell.scheduler`` continuous-batching path; ``kv_len_valid`` then
+    carries the matching per-lane validity bound).
+
+    Both products take float32 operands (the reference multiplies the
+    model-dtype operands with float32 accumulation: the same products);
+    the probabilities are rounded to V's dtype before P·V, as there.
     """
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
     qf = q.reshape(b, sq, kv, g, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k).to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", _f32(qf), _f32(k))
     s = s * (dh ** -0.5)
     # mask stays None when nothing masks (full bidirectional attention,
     # e.g. KWT): the softmax paths then skip the select ops entirely and
     # the cuda mode is the raw kernel output, bit-identical to
     # kernels.ops.lut_softmax.
     mask = None
-    if causal:
-        qpos = torch.arange(sq, device=q.device)
-        kpos = torch.arange(sk, device=q.device)
-        mask = (qpos[:, None] >= kpos)[None, None, None]
+    if causal or kv_len_valid is not None:
+        dev = q.device
+        kpos = k0 + torch.arange(sk, device=dev)
+        if causal:
+            qpos = q0 + torch.arange(sq, device=dev)
+            if _per_lane(q_offset):
+                qpos = q_offset.to(dev)[:, None] + qpos        # [B, sq]
+            else:
+                qpos = qpos + int(q_offset)                   # [sq]
+            mask = qpos[..., :, None] >= kpos
+        if kv_len_valid is not None:
+            if _per_lane(kv_len_valid):
+                valid = kpos < kv_len_valid.to(dev)[:, None, None]  # [B,1,sk]
+            else:
+                valid = (kpos < int(kv_len_valid))[None, :].expand(sq, sk)
+            mask = valid if mask is None else mask & valid
+        if mask.ndim == 2:                          # [sq, sk]: shared lanes
+            mask = mask[None, None, None]           # broadcast over b, kv, g
+        else:                                       # [B, ., sk]: per-lane
+            mask = mask.expand(b, sq, sk)[:, None, None]
     p = approx.masked_softmax(s, mask, mode=cfg.softmax_mode)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", _f32(p.to(v.dtype)), _f32(v))
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
+def sdpa(q, k, v, cfg, *, q_offset=0, kv_len_valid=None, causal=True):
+    """Masked GQA attention, plain path, query-chunked.
+
+    The float score product and P·V are outside any hand-written kernel
+    in the reference as well and stay plain einsums; the softmax between
+    them is ``approx.masked_softmax`` in the plan's mode (the softmax
+    kernel on the ``cuda`` plan).  Sequences longer than ``Q_CHUNK``
+    queries go in chunks of it, each against the keys it can see; that
+    applies only at a start position of 0 (a prefill of a fresh cache, or
+    a cacheless forward).
+    """
+    sq, sk = q.shape[1], k.shape[1]
+    if sq <= Q_CHUNK:
+        return _sdpa_block(q, k, v, cfg, q0=0, k0=0, q_offset=q_offset,
+                           kv_len_valid=kv_len_valid, causal=causal)
+    if _per_lane(q_offset) or int(q_offset) != 0:
+        raise ValueError("chunked attention assumes a start position of 0")
+    outs = []
+    for q0 in range(0, sq, Q_CHUNK):
+        qc = q[:, q0:q0 + Q_CHUNK]
+        # the key window of this chunk (positions are left-aligned: a query
+        # and a key at the same index share a position)
+        khi = min(sk, q0 + qc.shape[1]) if causal else sk
+        outs.append(_sdpa_block(
+            qc, k[:, :khi], v[:, :khi], cfg, q0=q0, k0=0, q_offset=0,
+            kv_len_valid=kv_len_valid, causal=causal))
+    return torch.cat(outs, dim=1)
+
+
+def _kv_quantized(cfg) -> bool:
+    return bool(cfg.quant and cfg.quant.quantize_kv_cache)
+
+
+def _use_flash_lut(cfg, kv_len_valid) -> bool:
+    """The flash-LUT attention serves the cacheless full / causal layouts;
+    an explicit validity bound needs ``sdpa``'s masks."""
+    return cfg.attn_impl == "flash_lut" and kv_len_valid is None \
+        and not cfg.sliding_window
+
+
 def apply_attention(p, x, cfg, *, positions=None, cache=None,
-                    kv_len_valid=None, causal=True):
-    """Returns (out, new_cache); this slice is cacheless, so the cache is
-    always None."""
-    if cache is not None or kv_len_valid is not None:
-        raise NotImplementedError(f"KV-cache attention {_LATER}")
-    if cfg.use_rope or cfg.qk_norm or cfg.sliding_window:
-        raise NotImplementedError(f"RoPE / qk-norm / sliding window {_LATER}")
+                    cache_index=None, kv_len_valid=None, causal=True):
+    """Returns (out, new_cache).  ``cache`` = dict(k=[B,S,KV,D], v=...) or
+    None; with a cache, this call's keys and values are written into it
+    in place at ``cache_index`` (an int, or a per-lane [B] tensor for a
+    one-token decode) and the same dict is returned."""
+    if cfg.sliding_window:
+        raise NotImplementedError(f"sliding-window attention {_LATER} "
+                                  "(the hybrid family)")
+    if cache is not None and _kv_quantized(cfg):
+        raise NotImplementedError(f"the int8 KV cache {_LATER}")
     if cfg.attn_impl not in ("xla", "flash_lut"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     b, sq, d = x.shape
@@ -191,41 +318,97 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
     q = q.reshape(b, sq, h, dh)
     k = k.reshape(b, sq, kv, dh)
     v = v.reshape(b, sq, kv, dh)
-    if cfg.attn_impl == "flash_lut":
-        # flash-LUT attention: online softmax with the paper's LUT exp, in
-        # the [B, H, L, D] layout, as views of the [B, L, H, D]
-        # projections: the kernel reads them where they lie and lays its
-        # output out so that the transpose back and the reshape below are
-        # views too.  The cuda plan launches the kernel (kernels.ops);
-        # every other plan takes its plain version, so a launch counter
-        # counts the cuda plan only.  (The reference sends cached and
-        # windowed layouts to sdpa instead; this slice has neither.)
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        if cfg.act_approx == "cuda":
-            from repro_torch.kernels import ops
-            out = ops.lut_attention(qh, kh, vh, causal=causal)
+    if cfg.qk_norm:
+        q = _rms(q, p["q_norm"]).to(x.dtype)
+        k = _rms(k, p["k_norm"]).to(x.dtype)
+    if cfg.use_rope:
+        if positions is None:
+            positions = torch.arange(sq, device=x.device)
+        cos, sin = rope_tables(torch.as_tensor(positions, device=x.device),
+                               dh, cfg.rope_theta)
+        cos, sin = cos[..., :, None, :], sin[..., :, None, :]
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    if cache is None:
+        if _use_flash_lut(cfg, kv_len_valid):
+            out = _flash(q, k, v, cfg, causal)
         else:
-            from repro_torch.kernels import ref
-            out = ref.lut_attention(qh, kh, vh, causal=causal,
-                                    softmax_mode="lut")
-        out = out.transpose(1, 2)
+            out = sdpa(q, k, v, cfg, q_offset=0, kv_len_valid=kv_len_valid,
+                       causal=causal)
+        new_cache = None
     else:
-        out = sdpa(q, k, v, cfg, causal=causal)
+        idx = cache_index
+        ck, cv = cache["k"], cache["v"]
+        if _per_lane(idx):                   # per-lane decode (cell)
+            if sq != 1:
+                raise ValueError("a per-lane cache_index is a one-token "
+                                 "decode path")
+            lanes = torch.arange(b, device=ck.device)
+            li = idx.to(ck.device).long()
+            ck.index_put_((lanes, li), k[:, 0].to(ck.dtype))
+            cv.index_put_((lanes, li), v[:, 0].to(cv.dtype))
+        else:
+            idx = int(idx)
+            ck[:, idx:idx + sq] = k
+            cv[:, idx:idx + sq] = v
+        valid = (idx + sq) if kv_len_valid is None else kv_len_valid
+        # a write of more than Q_CHUNK tokens is the prefill of a fresh
+        # cache (index 0): a start of 0 lets sdpa chunk the queries
+        q_off = idx if sq <= Q_CHUNK else 0
+        out = sdpa(q, ck, cv, cfg, q_offset=q_off, kv_len_valid=valid,
+                   causal=causal)
+        new_cache = cache
     out = linear(out.reshape(b, sq, h * dh), p["wo"], "bsf,fd->bsd", cfg)
     if "bo" in p:
         out = out + p["bo"]
-    return out.to(x.dtype), None
+    return out.to(x.dtype), new_cache
+
+
+def _flash(q, k, v, cfg, causal):
+    """Flash-LUT attention: online softmax with the paper's LUT exp, in
+    the [B, H, L, D] layout, as views of the [B, L, H, D] projections: the
+    kernel reads them where they lie and lays its output out so that the
+    transpose back and the reshape after it are views too.  The cuda plan
+    launches the kernel (kernels.ops); every other plan takes its plain
+    version, so a launch counter counts the cuda plan only.  The kernel
+    takes one dtype for q, k and v (qk-norm may leave v wider)."""
+    if not (q.dtype == k.dtype == v.dtype):
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if cfg.act_approx == "cuda":
+        from repro_torch.kernels import ops
+        out = ops.lut_attention(qh, kh, vh, causal=causal)
+    else:
+        from repro_torch.kernels import ref
+        out = ref.lut_attention(qh, kh, vh, causal=causal, softmax_mode="lut")
+    return out.transpose(1, 2)
+
+
+def init_kv_cache(cfg, batch, max_len, dtype=None, device="cpu"):
+    """Zero float K/V caches [batch, max_len, KV, D] in ``dtype`` (default:
+    the model dtype)."""
+    if _kv_quantized(cfg):
+        raise NotImplementedError(f"the int8 KV cache {_LATER}")
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = dtype or _dtype(cfg)
+    return {"k": torch.zeros((batch, max_len, kv, dh), dtype=dt, device=device),
+            "v": torch.zeros((batch, max_len, kv, dh), dtype=dt, device=device)}
 
 
 # ---------------------------------------------------------------------------
-# MLP (paper eq 6: FFN(x) = act(xW1 + b1)W2 + b2)
+# MLP (paper eq 6: FFN(x) = act(xW1 + b1)W2 + b2; gated for SiLU-family)
 # ---------------------------------------------------------------------------
 
 def mlp_params(cfg, generator, d_ff=None, device="cpu"):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = _dtype(cfg)
     if cfg.gated_mlp:
-        raise NotImplementedError(f"gated MLP {_LATER}")
+        return {"w_gate": he(generator, (d, f), 1.0, dt, device),
+                "w_up": he(generator, (d, f), 1.0, dt, device),
+                "w_down": he(generator, (f, d), 1.0, dt, device)}
     p = {"w1": he(generator, (d, f), 1.0, dt, device),
          "w2": he(generator, (f, d), 1.0, dt, device)}
     if cfg.bias:
@@ -235,10 +418,13 @@ def mlp_params(cfg, generator, d_ff=None, device="cpu"):
 
 
 def apply_mlp(p, x, cfg):
-    if cfg.gated_mlp:
-        raise NotImplementedError(f"gated MLP {_LATER}")
     _health.tap_activation("mlp_in", x, cfg)
     act = approx.activation(cfg.activation, cfg.act_approx)
+    if cfg.gated_mlp:
+        gate = act(linear(x, p["w_gate"], "bsd,df->bsf", cfg))
+        up = linear(x, p["w_up"], "bsd,df->bsf", cfg)
+        return linear((gate * up).to(x.dtype), p["w_down"],
+                      "bsf,fd->bsd", cfg).to(x.dtype)
     h = linear(x, p["w1"], "bsd,df->bsf", cfg)
     if "b1" in p:
         h = h + p["b1"]

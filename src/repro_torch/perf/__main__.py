@@ -7,7 +7,7 @@
 
 ``cost`` and ``calibrate`` run on the card unless ``--device cpu`` is
 given; on the CPU a ``cuda`` plan is priced through its plain versions
-(``perf.cost.cuda_plan_on_cpu``), which the cost model prices as the
+(``runtime.compile_model(..., plain_kernels=True)``), which the cost model prices as the
 kernels.  ``regress`` exits non-zero on any gated regression.
 ``--selftest`` proves the gate can fail: it seeds a throwaway ledger with
 a healthy baseline plus a 2× latency regression and a 1-byte ROM growth,
@@ -31,18 +31,15 @@ def _cmd_cost(args) -> int:
     from repro_torch.configs import registry
     from repro_torch.device import resolve_device
     from repro_torch.models import kwt
-    from repro_torch.perf import cost
 
     dev = resolve_device(args.device)
     cfg = registry.get(args.arch).config
     params = kwt.init_params(cfg, torch.Generator().manual_seed(0), dev)
     machine = perf.PAPER_MCU if args.mcu else perf.host_machine(device=dev)
     for backend in args.backends:
-        if backend == "cuda" and dev.type != "cuda":
-            eng = cost.cuda_plan_on_cpu(cfg, params)
-        else:
-            eng = runtime.compile_model(cfg, params, backend=backend,
-                                        device=dev)
+        eng = runtime.compile_model(cfg, params, backend=backend,
+                                    device=dev,
+                                    plain_kernels=dev.type == "cpu")
         rep = perf.engine_cost(eng, batch=args.batch)
         print(f"\n## {args.arch} · backend={backend} · batch={args.batch} "
               f"· device={dev} · machine={machine.name}")

@@ -512,8 +512,8 @@ def engine_cost(engine, x=None, batch: int = 1) -> CostReport:
     lp = _live_params(engine)
     if cfg.family != "kwt":
         raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet: the LM families wait "
-            "for ROADMAP queue A")
+            f"pricing a family={cfg.family!r} plan is not ported yet: it "
+            "waits for ROADMAP queue A item 3 (perf pricing of LM plans)")
     f, t = cfg.input_dim
     b = x.shape[0]
     frames = torch.zeros((b, t, f), dtype=torch.float32, device=engine.device)
@@ -558,19 +558,3 @@ def stream_hop_cost(engine, fcfg, batch: int = 1, chunk_hops: int = 1,
             lambda p, s, c: stream_engine.stream_step(p, s, c, cfg, fcfg),
             lp, state, chunk, stage="encode"))
     return rep
-
-
-def cuda_plan_on_cpu(cfg, params, **compile_kw):
-    """The ``cuda`` plan of ``params`` on the CPU, for pricing and for the
-    plain versions' outputs: ``runtime.compile_model`` refuses the
-    ``cuda`` backend off the card, so the plan is made as ``lut`` (the
-    same integer-resident, integer-executing PTQ) with the kernel modes
-    pinned; every kernel wrapper then takes its plain version and
-    reports the kernel's charge."""
-    from repro_torch import runtime
-    eng = runtime.compile_model(cfg, params, backend="lut", device="cpu",
-                                **compile_kw)
-    be = runtime.get_backend("cuda")
-    return dataclasses.replace(
-        eng, backend=be, exec_cfg=eng.exec_cfg.with_(
-            softmax_mode=be.softmax_mode, act_approx=be.act_approx))

@@ -12,14 +12,20 @@ ONCE, places the parameters on the device, and returns an ``Engine``:
     emb    = eng.embed_frames(frames)     # streaming building blocks
     logits = eng.encode_window(window)
 
+Dense LM engines expose ``init_decode_state`` / ``prefill`` /
+``decode_step`` (and ``forward``: tokens -> logits) instead, which
+``cell.scheduler`` and ``launch/serve.py`` run off; each family's entry
+points raise on the other's engine.
+
 Execution is eager under ``torch.inference_mode()``: there is no jit to
 plan, so the reference's jitted programs, its flat-leaf dispatch and its
 separate unpack executable have no counterpart here.  Capturing the
 fixed-shape forward in a CUDA graph is a follow-up.
 
-Telemetry: under an active ``telemetry`` tracer, ``forward`` and
-``stream_step`` record the reference's spans (``forward`` / ``unpack`` /
-``encode`` / ``taps``, ``stream_step`` / ``unpack`` / ``hop``), each
+Telemetry: under an active ``telemetry`` tracer, ``forward``,
+``stream_step``, ``prefill`` and ``decode_step`` record the reference's
+spans (``forward`` / ``unpack`` / ``encode`` / ``taps``, ``stream_step`` /
+``unpack`` / ``hop``, ``prefill`` / ``decode_step`` over ``encode``), each
 fenced with ``torch.cuda.synchronize`` of the engine's device so that a
 span measures the device work; with no tracer the path is the untraced
 one, with no synchronize.  ``compile_model(taps=True)`` plans the
@@ -29,7 +35,8 @@ statistics ``forward`` returns beside the logits of the untapped pass.
 
 Device rule: ``device=None`` means the card and raises where there is
 none; the CPU is used only when the caller passes ``device="cpu"``.  The
-``cuda`` backend needs a CUDA device.
+``cuda`` backend needs a CUDA device, unless the caller asks for its
+plain versions on the CPU (``plain_kernels=True``).
 
 Numerics: ``compile_model`` turns TF32 off for matmuls and cuDNN — the
 float score product in TF32 would move logits far beyond every stated
@@ -60,9 +67,12 @@ def _model_module(cfg):
     if cfg.family == "kwt":
         from repro_torch.models import kwt
         return kwt
+    if cfg.family == "dense":
+        from repro_torch.models import transformer
+        return transformer
     raise NotImplementedError(
-        f"family={cfg.family!r} is not ported yet: the LM families wait for "
-        "ROADMAP queue A item 3")
+        f"family={cfg.family!r} is not ported yet: it waits for ROADMAP "
+        f"queue A item 3 ({cfg.family})")
 
 
 def _tree_bytes(tree) -> int:
@@ -177,12 +187,14 @@ class Engine:
 
     def embed_frames(self, frames):
         """[B, t, F] time-major frames -> [B, t, d] patch embeddings."""
+        self._require_kwt("embed_frames")
         with torch.inference_mode():
             return self._mod.embed_frames(self.live_params(),
                                           self._input(frames), self.exec_cfg)
 
     def encode_window(self, window):
         """Assembled [B, T, d] window -> logits [B, n_classes]."""
+        self._require_kwt("encode_window")
         with torch.inference_mode():
             return self._mod.encode_window(self.live_params(),
                                            self._input(window), self.exec_cfg)
@@ -193,6 +205,7 @@ class Engine:
         logits).  ``state`` comes from ``stream.engine.init_stream_state``
         on this engine's device; ``chunk`` may be numpy or a tensor
         anywhere and is moved there."""
+        self._require_kwt("stream_step")
         from repro_torch.stream import engine as stream_engine
         tr = _trace.active_tracer()
         if tr is None:
@@ -208,14 +221,55 @@ class Engine:
                 self._fence()
                 return out
 
+    # -- LM serving entry points ------------------------------------------
+
     def init_decode_state(self, batch: int, max_len: int):
-        _later("Engine.init_decode_state", "item 3 (LM families)")
+        """Zero KV caches for ``batch`` lanes of ``max_len`` tokens on the
+        engine's device, index 0 (ordinary tensors: the caller may edit
+        them; ``prefill`` / ``decode_step`` write them in place), in the
+        dtype the plan computes keys and values in (``kv_dtype``: float32
+        on the integer plans, whose blocks are a float32 view)."""
+        self._require_lm("init_decode_state")
+        return self._mod.init_decode_state(
+            self.exec_cfg, batch, max_len, device=self.device,
+            dtype=self._mod.kv_dtype(self.params, self.exec_cfg))
 
     def prefill(self, tokens, state):
-        _later("Engine.prefill", "item 3 (LM families)")
+        """tokens [B, S] -> (last logits [B, V], state); the caches of
+        ``state`` are written in place (``models.transformer``)."""
+        return self._lm_call("prefill", tokens, state)
 
     def decode_step(self, token, state):
-        _later("Engine.decode_step", "item 3 (LM families)")
+        """token [B] -> (logits [B, V], state), one token on every lane."""
+        return self._lm_call("decode_step", token, state)
+
+    def _lm_call(self, what: str, tokens, state):
+        self._require_lm(what)
+        fn = getattr(self._mod, what)
+        tr = _trace.active_tracer()
+        if tr is None:
+            with torch.inference_mode():
+                return fn(self.live_params(), self._input(tokens),
+                          self.exec_cfg, state)
+        with tr.span(what, {"backend": self.backend.name}):
+            lp = self._live_traced(tr)
+            with tr.span("encode"), torch.inference_mode():
+                out = fn(lp, self._input(tokens), self.exec_cfg, state)
+                self._fence()
+                return out
+
+    def _require_kwt(self, what: str):
+        if self.exec_cfg.family != "kwt":
+            raise NotImplementedError(
+                f"{what} is a KWT streaming entry point; family="
+                f"{self.exec_cfg.family!r} engines expose forward/prefill/"
+                "decode_step")
+
+    def _require_lm(self, what: str):
+        if self.exec_cfg.family == "kwt":
+            raise NotImplementedError(
+                f"{what} is an LM serving entry point; family='kwt' engines "
+                "expose forward/stream_step/embed_frames/encode_window")
 
     # -- introspection -----------------------------------------------------
 
@@ -264,7 +318,9 @@ class Engine:
             f"int{self.recipe.bits} {self.recipe.rounding}" + \
             (" int-exec" if self.int_exec else
              " resident" if self.int_resident else "")
-        kern = ", kernels=cuda" if self.backend.uses_kernels else ""
+        kern = "" if not self.backend.uses_kernels else \
+            ", kernels=cuda" if self.device.type == "cuda" else \
+            ", kernels=cuda (their plain versions on the cpu)"
         attn = "" if self.exec_cfg.attn_impl == "xla" else \
             f", attn={self.exec_cfg.attn_impl}"
         line = (f"Engine[{self.backend.name}] {self.exec_cfg.name} on "
@@ -370,6 +426,19 @@ def _recipe_from_tree(cfg, tree) -> QuantRecipe:
         per_channel=any(q.axis_exponents is not None for q in qleaves))
 
 
+def _lm_partial_resident(qtree: dict) -> dict:
+    """LM partial residency: keep the big vocab-facing leaves (embedding
+    table / untied head) packed for integer execution, dequantise the
+    stacked blocks.  The embedding is consumed row-wise through
+    ``quant.gather_descale`` and the head through the integer matmul
+    (the CUDA kernel on the ``cuda`` plan); the blocks' per-channel
+    exponents have no layer axis to slice, so the blocks run their float
+    view (float32), as in the reference."""
+    packed = {k: v for k, v in qtree.items() if k in ("embed", "lm_head")}
+    rest = {k: v for k, v in qtree.items() if k not in packed}
+    return {**quant.dequantize_tree(rest), **packed}
+
+
 def _pin_int_exec(exec_cfg, recipe: QuantRecipe):
     """Pin the integer-execution plan flavour onto the exec config: the
     activation quantiser shares the recipe's eq-9 semantics (input
@@ -393,7 +462,8 @@ def compile_model(cfg, params, backend="float",
                   attention: str | None = None,
                   integer_resident: bool | None = None,
                   integer_exec: bool | None = None,
-                  taps: bool = False, device=None) -> Engine:
+                  taps: bool = False, device=None,
+                  plain_kernels: bool = False) -> Engine:
     """Plan execution of ``params`` under ``backend`` on ``device``.
 
     ``recipe=None`` -> the backend's default policy: quantising backends
@@ -418,12 +488,21 @@ def compile_model(cfg, params, backend="float",
     second pass; the logits are the untapped pass's, equal to a
     ``taps=False`` plan's.
 
+    Dense LM families get PARTIAL residency under an integer-executing
+    backend (``lut`` / ``cuda``): embedding and head stay packed, the
+    blocks are dequantised, and the plan is pinned integer-executing
+    (``_lm_partial_resident``); ``integer_resident`` overrides that as it
+    does for KWT.
+
     ``device=None`` resolves to the CUDA device and raises when there is
-    none.  The ``cuda`` backend on a CPU device raises.
+    none.  The ``cuda`` backend on a CPU device raises, unless
+    ``plain_kernels=True`` asks for its plain versions there (every kernel
+    wrapper takes its plain version for a CPU tensor): the kernel plan's
+    rehearsal on the host, by explicit request only.
     """
     be = get_backend(backend)
     device = resolve_device(device)
-    if be.uses_kernels and device.type != "cuda":
+    if be.uses_kernels and device.type != "cuda" and not plain_kernels:
         raise ValueError(
             f"backend {be.name!r} runs hand-written CUDA kernels and needs a "
             f"CUDA device, got device={str(device)!r}; on the CPU use 'lut', "
@@ -446,10 +525,19 @@ def compile_model(cfg, params, backend="float",
         # ROM footprint is the artifact's full packed image, independent
         # of which leaves the plan keeps resident.
         qbytes = quant.tree_quantized_bytes(qtree)
-        resident = (be.int_resident and cfg.family == "kwt"
-                    if integer_resident is None else bool(integer_resident))
-        params = qtree if resident else quant.dequantize_tree(qtree)
-        int_exec = exec_flag and resident
+        if integer_resident is not None or cfg.family == "kwt":
+            resident = (be.int_resident and cfg.family == "kwt"
+                        if integer_resident is None
+                        else bool(integer_resident))
+            params = qtree if resident else quant.dequantize_tree(qtree)
+            int_exec = exec_flag and resident
+        elif exec_flag and be.int_resident and isinstance(qtree, dict) \
+                and "embed" in qtree:
+            params = _lm_partial_resident(qtree)
+            int_exec = True
+        else:
+            params = quant.dequantize_tree(qtree)
+        del qtree
     if be.uses_kernels and not int_exec:
         raise ValueError(
             f"backend {be.name!r} integer-executes stored weights; it cannot "

@@ -74,7 +74,7 @@ def test_config_field_sets_and_values_equal_reference(name):
         assert tkwt.seqlen(tc) == jkwt.seqlen(jc)
     assert te.shapes == je.shapes and te.skips == je.skips
     assert te.config.with_(n_layers=3).n_layers == 3
-    assert sorted(tregistry.all_entries()) == ["kwt-1", "kwt-tiny"]
+    assert sorted(tregistry.all_entries()) == sorted(jregistry.all_entries())
 
 
 # ---------------------------------------------------------------------------
@@ -238,13 +238,20 @@ def test_init_params_layout_matches_reference_and_device_rule():
 
 
 def test_later_slices_raise_not_implemented():
+    """RMSNorm, gated MLPs, RoPE and the float KV cache came with the dense
+    LM slice (tests/test_torch_lm_layers.py); what stays later: the
+    sliding window (hybrid), the int8 KV cache and the moe family."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import transformer as tT
     tcfg = tregistry.get("kwt-tiny").config
     x = torch.zeros(1, 27, 12)
+    kvq = tcfg.with_(quant=QuantConfig(quantize_kv_cache=True))
     with pytest.raises(NotImplementedError):
-        tL.apply_norm({}, x, tcfg.with_(norm="rmsnorm"))
+        tL.apply_attention({}, x, tcfg.with_(sliding_window=8))
     with pytest.raises(NotImplementedError):
-        tL.apply_mlp({}, x, tcfg.with_(gated_mlp=True))
+        tL.init_kv_cache(kvq, 1, 4)
     with pytest.raises(NotImplementedError):
-        tL.apply_attention({}, x, tcfg.with_(use_rope=True))
+        tL.apply_attention({}, x, kvq, cache={})
     with pytest.raises(NotImplementedError):
-        tL.apply_attention({}, x, tcfg, cache={})
+        tT.init_params(tregistry.get("granite-moe-3b-a800m").smoke,
+                       torch.Generator(), "cpu")

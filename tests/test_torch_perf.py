@@ -186,8 +186,9 @@ def test_kwt_tiny_matmul_flops_hand_counted(plan, batch):
     want = _analytic_matmul_flops(tcfg, batch)
     if plan.startswith("cuda"):
         attention = "flash_lut" if plan == "cuda_flash" else None
-        eng = tcost.cuda_plan_on_cpu(
-            tcfg, convert.from_numpy_tree(npp, "cpu"), attention=attention)
+        eng = trt.compile_model(
+            tcfg, convert.from_numpy_tree(npp, "cpu"), backend="cuda",
+            attention=attention, device="cpu", plain_kernels=True)
         rep = tperf.engine_cost(eng, batch=batch)
         ref = _costs("kwt-tiny", "lut", batch)[0]
     else:
@@ -316,7 +317,8 @@ def test_kernel_plan_priced_by_its_charges():
     charges and nothing else (one charge per layer), whatever the plain
     versions run."""
     jcfg, tcfg, npp, _ = _setup("kwt-tiny")
-    eng = tcost.cuda_plan_on_cpu(tcfg, convert.from_numpy_tree(npp, "cpu"))
+    eng = trt.compile_model(tcfg, convert.from_numpy_tree(npp, "cpu"),
+                            backend="cuda", device="cpu", plain_kernels=True)
     rep = tperf.engine_cost(eng, batch=2)
     t = tcfg.input_dim[1] + 1
     sm, ge = rep.lines[("encode", "softmax")], rep.lines[("encode", "gelu")]

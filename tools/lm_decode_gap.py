@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Where a dense LM's prefill + decode_step departs from its forward.
+
+    python tools/lm_decode_gap.py [--arch internlm2-1.8b] [--smoke]
+        [--device cpu] [--cpu-twin] [--out FILE]
+
+The check of ``chip_smoke.py``'s phase ``lm_internlm2`` (a prefill of
+S - 1 tokens into caches of S slots and one ``decode_step``, against the
+last logits of ``forward``; tokens [2, 64] from numpy seed 7, weights from
+seed 0 drawn on the device), taken apart, plan by plan:
+
+- ``layers``: for each block, the last position's output, decode against
+  forward: the largest difference over the largest magnitude;
+- ``head_in``: the same for the head's input (after the final norm), and
+  ``codes_differ``: how many of its eq-9 codes (the integer head's
+  quantised input, ``input_exponent``) differ;
+- ``rel``: the logits' gap, as the phase computes it, with ``argmax_equal``;
+  ``float_head_rel``: the gap the same two head inputs give through the
+  dequantised head in float64, so that ``rel`` less it is what the head's
+  quantiser adds;
+- ``per_lane_equal``: the decode with a per-lane ``[B]`` index (the
+  scheduler's path: scatter write, per-lane masks) against the scalar one,
+  ``torch.equal``.
+
+Plans: ``cuda``, and with float32 activations; ``lut`` and its variants with a LUT switched off
+(``softmax=exact``, ``silu=exact``, both), each with bfloat16 and with
+float32 activations (``[dtype]``); ``float``.
+``--cpu-twin`` adds the ``cuda`` plan on the host CPU through its kernels'
+plain versions, from the same weights, and the card against the host for
+forward and for prefill + decode.  One JSON object a plan on standard
+output (and in ``--out``).  Without ``--device`` it takes the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+from repro_torch import runtime  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
+from repro_torch.core.tree import tree_map  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
+
+TOKENS = (2, 64)
+
+
+class Recorder:
+    """Keeps the last position of every block output and of the head's
+    input while installed (``models.transformer`` looks both up at call
+    time)."""
+
+    def __init__(self):
+        self.blocks, self.head_in = [], None
+
+    def __enter__(self):
+        self._block, self._head = lm.apply_block, lm._head
+
+        def block(*a, **kw):
+            x, st = self._block(*a, **kw)
+            self.blocks.append(x[:, -1].double().cpu())
+            return x, st
+
+        def head(params, x, cfg):
+            self.head_in = (x if x.ndim == 2 else x[:, -1]).detach().clone()
+            return self._head(params, x, cfg)
+
+        lm.apply_block, lm._head = block, head
+        return self
+
+    def __exit__(self, *exc):
+        lm.apply_block, lm._head = self._block, self._head
+
+
+def _rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _head_weight(eng):
+    w = eng.params.get("lm_head")
+    if isinstance(w, quant.QTensor):
+        return quant.resident_values(w).double()
+    return w.double()
+
+
+def _clone(state):
+    return {"layers": tree_map(lambda t: t.clone(), state["layers"]),
+            "index": state["index"]}
+
+
+def gap(eng, toks) -> dict:
+    """prefill + decode against forward on one plan, taken apart."""
+    cfg = eng.exec_cfg
+    b, s = toks.shape
+    with Recorder() as fwd_rec:
+        fwd = eng.forward(toks)[:, -1]
+    state = eng.init_decode_state(b, s)
+    _, state = eng.prefill(toks[:, :-1], state)
+    lanes = _clone(state)
+    lanes["index"] = torch.full((b,), state["index"], dtype=torch.long,
+                                device=eng.device)
+    with Recorder() as dec_rec:
+        dec, _ = eng.decode_step(toks[:, -1], state)
+    dec_lanes, _ = eng.decode_step(toks[:, -1], lanes)
+    layers = [_rel(d, f) for d, f in zip(dec_rec.blocks, fwd_rec.blocks)]
+    w = _head_weight(eng)
+    hf, hd = fwd_rec.head_in, dec_rec.head_in
+    x_exp = cfg.quant.input_exponent if cfg.quant is not None else 5
+    codes = int((quant.quantize_act(hf, x_exp)
+                 != quant.quantize_act(hd, x_exp)).sum())
+    last = fwd.double().cpu()
+    float_head = (hd.double() @ w - hf.double() @ w).abs().max().cpu()
+    return {"rel": _rel(dec, fwd),
+            "argmax_equal": bool(torch.equal(dec.argmax(-1), fwd.argmax(-1))),
+            "float_head_rel": float(float_head / last.abs().max()),
+            "head_in": _rel(hd, hf), "codes_differ": codes,
+            "head_in_numel": hd.numel(),
+            "per_lane_equal": bool(torch.equal(dec, dec_lanes)),
+            "layers": layers,
+            "first_layer_over_1e-3": next(
+                (i for i, r in enumerate(layers) if r > 1e-3), None)}
+
+
+def variants(cuda_eng, lut_eng, float_eng):
+    """(name, engine): the cuda plan, the same with float32 activations,
+    the lut plan with its LUTs switched off one at a time, with bf16 and
+    with float32 activations, and the float plan."""
+    yield "cuda", cuda_eng
+    yield "cuda [float32]", dataclasses.replace(
+        cuda_eng, exec_cfg=cuda_eng.exec_cfg.with_(dtype="float32"))
+    for dt in ("bfloat16", "float32"):
+        tag = f" [{dt}]"
+        for name, kw in (("lut", {}),
+                         ("lut softmax=exact", {"softmax_mode": "exact"}),
+                         ("lut silu=exact", {"act_approx": "exact"}),
+                         ("lut softmax=exact silu=exact",
+                          {"softmax_mode": "exact", "act_approx": "exact"})):
+            yield name + tag, dataclasses.replace(
+                lut_eng, exec_cfg=lut_eng.exec_cfg.with_(dtype=dt, **kw))
+    yield "float", float_eng
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--cpu-twin", action="store_true")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    spec = registry.get(args.arch)
+    cfg = spec.smoke if args.smoke else spec.config
+    out = open(args.out, "w") if args.out else None
+
+    def emit(obj):
+        line = json.dumps(obj)
+        print(line, flush=True)
+        if out is not None:
+            out.write(line + "\n")
+            out.flush()
+
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, TOKENS).astype(np.int32)
+    plain = dev.type == "cpu"
+    cuda_eng = runtime.compile_model(cfg, params, backend="cuda", device=dev,
+                                     plain_kernels=plain)
+    lut_eng = runtime.compile_model(cfg, params, backend="lut", device=dev)
+    float_eng = runtime.compile_model(cfg, params, backend="float", device=dev)
+    for name, eng in variants(cuda_eng, lut_eng, float_eng):
+        t0 = time.perf_counter()
+        emit({"plan": name, "device": str(dev), "model": cfg.name,
+              "n_layers": cfg.n_layers, **gap(eng, toks),
+              "seconds": time.perf_counter() - t0})
+    del lut_eng, float_eng
+    if args.cpu_twin and dev.type != "cpu":
+        t0 = time.perf_counter()
+        host = runtime.compile_model(
+            cfg, tree_map(lambda t: t.cpu(), params), backend="cuda",
+            device="cpu", plain_kernels=True)
+        del params
+        same = all(torch.equal(a.values.cpu(), b.values) for a, b in (
+            (cuda_eng.params["embed"], host.params["embed"]),
+            (cuda_eng.params["lm_head"], host.params["lm_head"])))
+        row = {"plan": "cuda on the host CPU (plain versions)",
+               "device": "cpu", "model": cfg.name, "n_layers": cfg.n_layers,
+               "payloads_equal_card": same, **gap(host, toks)}
+        card_f = cuda_eng.forward(toks)[:, -1]
+        host_f = host.forward(toks)[:, -1]
+        decs = []
+        for eng in (cuda_eng, host):
+            st = eng.init_decode_state(*TOKENS)
+            _, st = eng.prefill(toks[:, :-1], st)
+            decs.append(eng.decode_step(toks[:, -1], st)[0])
+        row.update(card_vs_host_forward_rel=_rel(card_f, host_f),
+                   card_vs_host_decode_rel=_rel(decs[0], decs[1]),
+                   seconds=time.perf_counter() - t0)
+        emit(row)
+    if out is not None:
+        out.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
