@@ -4,9 +4,9 @@
 Needs one NVIDIA GPU (built for Hopper, ``sm_90a``) and ``nvcc``; takes no
 arguments.  It drives the port's main paths — the Keyword Transformer
 served offline through ``repro_torch.runtime``, streamed hop by hop, and
-trained with quantisation-aware training, and the dense LM
-(internlm2-1.8b at full width) served with continuous batching — on the
-card, and is the quickest proof that the port still builds and starts
+trained with quantisation-aware training, the dense LM (internlm2-1.8b
+at full width) and the moe LM (granite-moe-3b-a800m at full width) served
+with continuous batching — on the card, and is the quickest proof that the port still builds and starts
 there:
 
 1. ``device``          the card, its power limit, TF32 off.
@@ -41,7 +41,10 @@ there:
    prefill rows and per-lane decode rows of 33, 256 and 1024 keys, beside
    ``torch.softmax``; the causal GQA attention (2, 16, 8, 1024, 1024, 128)
    on strided views, beside SDPA.  The kernels line carries these rows
-   under ``lm``.
+   under ``lm``.  The moe router's unmasked Q8.24 rows of 40 experts
+   (granite-moe-3b-a800m) at a decode step of 4 slots ``[4, 40]`` and a
+   join prefill of 4 x 63 tokens ``[252, 40]``, variant ``fixed router``,
+   beside ``torch.softmax``, under ``moe``.
    ``lut_attention`` cannot be ``torch.equal``: the kernel's own order of
    the dot over D moves an occasional score across a 1/32 LUT bin.  In
    its LUT mode it is held to its plain version (``ref.lut_attention``,
@@ -169,22 +172,48 @@ there:
                        ``xla`` one (``LM_FLASH_*``; one attention launch
                        per layer, counted on the path); p50 ms per decode
                        step and per prefill, ATen ops per step.
-14. ``lm_dense_smoke`` the five dense smoke configs under ``float``, ``lut``
-                       and ``cuda``: decode == forward within the
-                       reference's rel 1e-4, and the card against the same
-                       plan on the CPU (the ``cuda`` plan there through its
-                       kernels' plain versions): 1e-4 on ``float``, two
-                       steps of the head's eq-9 input on the integer plans
-                       (``LM_SMOKE_*``).
+14. ``lm_dense_smoke`` the five dense smoke configs and the two moe ones
+                       (granite-moe, deepseek-moe with its 2 shared
+                       experts) under ``float``, ``lut`` and ``cuda``:
+                       decode == forward within the reference's rel 1e-4
+                       (moe at the drop-free capacity factor 8.0), and the
+                       card against the same plan on the CPU (the ``cuda``
+                       plan there through its kernels' plain versions):
+                       1e-4 on ``float``, two steps of the head's eq-9
+                       input on the integer plans (``LM_SMOKE_*``).
+15. ``lm_granite_moe`` granite-moe-3b-a800m at full width (32 layers, d
+                       1536, 24 heads / 8 KV, 40 experts padded to 48,
+                       top-8, expert_d_ff 512, vocab 49155, bf16; random
+                       weights drawn on the card from a seed) served
+                       through ``repro_torch.launch.serve --backend cuda``:
+                       8 requests on 4 slots, KV 256, tracing on, every
+                       request served, the artifacts valid; the launches
+                       equal two softmaxes per layer (attention + router)
+                       and one matmul per prefill and decode step.  Then,
+                       at the drop-free capacity factor 8.0 (a plan that
+                       shares the weights): prefill + decode against
+                       forward (``MOE_DECODE_REL`` on ``cuda``,
+                       ``MOE_F32_DECODE_REL`` and every route equal on
+                       ``cuda`` at float32 activations, rel 1e-4 on
+                       ``float`` at float32 activations), a per-lane step
+                       equal to the scalar one, the same requests in two
+                       orders equal; at the config's 1.25, recorded: the
+                       dropped (token, slot) pairs of one 4 x 63 prefill
+                       and whether two orders differ (ROADMAP C8); the
+                       softmax kernel ``torch.equal`` to its plain version
+                       on every layer's router logits of that prefill;
+                       ``cuda`` against ``lut`` (recorded); p50 ms per
+                       decode step and per prefill, ATen ops per step, peak
+                       GB.
 
 The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
-the train phases (11, 12) and the LM server with its ``flash_lut`` forward
-(13) are the main paths: the counters go to 0
+the train phases (11, 12), the LM server with its ``flash_lut`` forward
+(13) and the moe server (15) are the main paths: the counters go to 0
 just before each group and are read just after it; the launches of the
 stream phases' check forwards, of the cell phase's checks (hot-swap's warm
 and probe forwards, the refused artifact's, the taps plan's) and of the
-train phases' checks (and of the LM phase's checks after its served run)
-are taken out of their paths' counts, which must then
+train phases' checks (and of the LM phases' checks after their served
+runs) are taken out of their paths' counts, which must then
 equal what the steps, hops and runs launched.  Every path's
 count must equal what that path is expected to launch (the train path
 launches the softmax and the GELU ``n_layers`` times a step and neither
@@ -220,6 +249,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -251,6 +281,7 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import stream_serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import kwt  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.perf import cost as perf_cost  # noqa: E402
@@ -883,6 +914,10 @@ LM_MATMUL_EXTRA = [("ragged_k", 5, 1000, 300, 8), ("k8192", 4, 8192, 2048, 8),
 LM_SOFTMAX_SK = (33, 256, 1024)
 LM_SLOTS = 4
 LM_ATTENTION = (2, 16, 8, 1024, 1024, 128)
+# the moe router's rows (granite-moe-3b-a800m, 40 experts, unmasked Q8.24):
+# a decode step of 4 slots and a join prefill of 4 x 63 tokens
+MOE_NAME = "granite-moe-3b-a800m"
+MOE_ROUTER_ROWS = (LM_SLOTS, LM_SLOTS * 63)
 
 
 def check_masked_softmax(dev, gen, kind, sk, heads, lanes):
@@ -924,7 +959,8 @@ def check_masked_softmax(dev, gen, kind, sk, heads, lanes):
 
 
 def lm_kernel_rows(dev, gen, rows) -> None:
-    """The kernels at the dense LM's shapes, appended to ``rows``."""
+    """The kernels at the dense LM's shapes and the moe router's, appended
+    to ``rows``."""
     cfg = registry.get(LM_NAME).config
     d, v = cfg.d_model, cfg.padded_vocab
     for m in LM_HEAD_ROWS:
@@ -945,6 +981,11 @@ def lm_kernel_rows(dev, gen, rows) -> None:
                         strided=True)
     rows["lut_attention"].append({"model": LM_NAME, "batch": LM_ATTENTION[0],
                                   **r})
+    experts = registry.get(MOE_NAME).config.n_experts
+    for m in MOE_ROUTER_ROWS:
+        r = check_softmax(dev, gen, m, experts, True, timed=True)
+        rows["lut_softmax"].append({**r, "model": MOE_NAME, "batch": m,
+                                    "variant": "fixed router"})
 
 
 # ---------------------------------------------------------------------------
@@ -2074,10 +2115,13 @@ LM_SMOKE_MIN_ARGMAX = 0.9
 def lm_expected(cfg, calls: int, attention: str = "xla") -> dict:
     """Per LM call (``forward``, ``prefill`` or ``decode_step`` of at most
     ``Q_CHUNK`` queries): one softmax per layer under ``xla`` (one attention
-    launch per layer under ``flash_lut``, forward only), one int8 matmul
-    (the packed head); no GELU (SiLU is the LUT, no kernel)."""
+    launch per layer under ``flash_lut``, forward only) and, on a moe
+    config, one more per layer for the router; one int8 matmul (the packed
+    head; the experts are batched float products); no GELU (SiLU is the
+    LUT, no kernel)."""
     flash = attention == "flash_lut"
-    return {"lut_softmax": 0 if flash else cfg.n_layers * calls,
+    routers = cfg.n_layers * calls if cfg.family == "moe" else 0
+    return {"lut_softmax": (0 if flash else cfg.n_layers * calls) + routers,
             "lut_gelu": 0, "int8_matmul": calls,
             "lut_attention": cfg.n_layers * calls if flash else 0}
 
@@ -2299,14 +2343,16 @@ def seeded_lm_params(cfg, seed: int) -> dict:
 
 
 def phase_lm_smoke(dev) -> dict:
-    """The five dense smoke configs on the card under float, lut and
-    cuda: decode == forward, and each plan against the same plan on the
-    CPU (the cuda plan there through its kernels' plain versions); the
-    cuda plan's launches per call."""
+    """The five dense smoke configs and the two moe ones on the card under
+    float, lut and cuda: decode == forward (a moe config at the drop-free
+    capacity factor, on a plan that shares the weights), and each plan
+    against the same plan on the CPU (the cuda plan there through its
+    kernels' plain versions); the cuda plan's launches per call."""
     out = {"phase": "lm_dense_smoke", "configs": []}
     failures = []
-    for name in registry.DENSE:
+    for name in registry.DENSE + [MOE_NAME, "deepseek-moe-16b"]:
         cfg = registry.get(name).smoke
+        moe = cfg.family == "moe"
         np_tree = seeded_lm_params(cfg, 0)
         toks = np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, 16)).astype(np.int32)
@@ -2318,19 +2364,22 @@ def phase_lm_smoke(dev) -> dict:
             cpu = runtime.compile_model(
                 cfg, convert.from_numpy_tree(np_tree, "cpu"), backend=plan,
                 device="cpu", plain_kernels=plan == "cuda")
+            dec_eng = dataclasses.replace(eng, exec_cfg=eng.exec_cfg.with_(
+                capacity_factor=MOE_DROP_FREE)) if moe else eng
             before = ops.launch_counts()
             fwd = eng.forward(toks)
-            state = eng.init_decode_state(*toks.shape)   # rows as forward's
-            _, state = eng.prefill(toks[:, :-1], state)
-            dec, _ = eng.decode_step(toks[:, -1], state)
+            ref_last = (dec_eng.forward(toks) if moe else fwd)[:, -1]
+            # caches as long as the forward: the same rows in the softmax
+            state = dec_eng.init_decode_state(*toks.shape)
+            _, state = dec_eng.prefill(toks[:, :-1], state)
+            dec, _ = dec_eng.decode_step(toks[:, -1], state)
             rose = _rise(before)
-            want = lm_expected(cfg, 3) if plan == "cuda" else \
+            want = lm_expected(cfg, 4 if moe else 3) if plan == "cuda" else \
                 {k: 0 for k in rose}
             if rose != want:
                 failures.append(f"{name} {plan}: launched {rose}, expected "
                                 f"{want}")
-            rel = float((dec - fwd[:, -1]).abs().max()
-                        / fwd[:, -1].abs().max())
+            rel = float((dec - ref_last).abs().max() / ref_last.abs().max())
             on_cpu = cpu.forward(toks)
             diff = float((fwd.cpu() - on_cpu).abs().max())
             agree = float((fwd.cpu().argmax(-1) == on_cpu.argmax(-1))
@@ -2355,6 +2404,274 @@ def phase_lm_smoke(dev) -> dict:
     if failures:
         raise AssertionError("; ".join(failures))
     return out
+
+
+MOE_SERVE_ARGS = ["--arch", MOE_NAME, "--backend", "cuda", "--requests",
+                  "8", "--slots", str(LM_SLOTS), "--max-len", "256",
+                  "--seed", "0"]
+# the reference's own decode == forward test raises the capacity factor to
+# 8.0, where no slot drops (tests/test_models.py); granite's 1.25 drops
+# slots of hot experts in a join prefill of 4 x 63 tokens (C = 64 against
+# a mean load of 50.4), and a join group shares that capacity (ROADMAP C8)
+MOE_DROP_FREE = 8.0
+# prefill of S - 1 tokens + one decode step against forward's last logits
+# at the drop-free factor, over the real vocabulary.  tools/lm_decode_gap.py
+# takes the gap apart (PERF.md §6, PR 19): the integer plans' blocks are a
+# float32 view, and at bf16 activations the float32 products' other
+# rounding at another row count turns into bf16 steps from layer 1 on,
+# which a random moe's large expert outputs carry and which from layer 24
+# flip routes; measured on the card: 0.3146 on cuda (argmax equal, 92.2 %
+# of the last position's expert sets equal), 0.0074 on the same plan at
+# float32 activations with every route equal, 0.0 on the bf16 float plan,
+# 1.88e-5 on the float plan at float32.  So the cuda plan is held to
+# MOE_DECODE_REL with its argmax, the cuda plan at float32 activations to
+# MOE_F32_DECODE_REL with every route equal, and the float plan at float32
+# to the reference's rel 1e-4 (tests/test_models.py)
+MOE_DECODE_REL = 0.5
+MOE_F32_DECODE_REL = 0.02
+MOE_ORDER_GEN = 16            # budget of each request in the order checks
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """While open, each moe block's routing is taken again on its input,
+    beside the block, and recorded per call: the expert ids ``[T, k]``,
+    the keep mask, and whether the softmax kernel on the router logits
+    was ``torch.equal`` to its plain version (these softmax launches are
+    checks of no path)."""
+    seen = []
+    block = lm_moe.apply_moe
+
+    def recording(p, x, cfg):
+        xt = x.reshape(-1, x.shape[-1])
+        logits = xt.to(torch.float32) @ p["router"]
+        equal = bool(torch.equal(ops.lut_softmax(logits, fixed=True),
+                                 ref.lut_softmax(logits, fixed=True)))
+        _, idx = lm_moe._route(xt, p["router"], cfg)
+        _, _, keep = lm_moe._slots(idx, e_lo=0,
+                                   e_n=lm_moe.padded_experts(cfg),
+                                   C=lm_moe._capacity(xt.shape[0], cfg))
+        seen.append({"idx": idx, "keep": keep, "equal": equal})
+        return block(p, x, cfg)
+
+    lm_moe.apply_moe = recording
+    try:
+        yield seen
+    finally:
+        lm_moe.apply_moe = block
+
+
+def route_agreement(fwd_routes, dec_routes, lanes: int) -> dict:
+    """The last position's experts in a forward against a decode step's,
+    over (layer, lane): the share with the same set, and with the same
+    slot order."""
+    same_set = same_order = 0
+    for f, d in zip(fwd_routes, dec_routes):
+        fi = f["idx"].reshape(lanes, -1, f["idx"].shape[-1])[:, -1]
+        di = d["idx"].reshape(lanes, -1)
+        same_order += int((fi == di).all(dim=-1).sum())
+        same_set += int((fi.sort(dim=-1).values == di.sort(dim=-1).values)
+                        .all(dim=-1).sum())
+    n = lanes * len(dec_routes)
+    return {"expert_set_agree": same_set / n, "slot_order_agree": same_order / n}
+
+
+def phase_lm_granite_moe(dev, tmp: str) -> tuple:
+    """granite-moe-3b-a800m at full width (32 layers, d 1536, 24 heads / 8
+    KV, head_dim 64, 40 experts padded to 48, top-8, expert_d_ff 512,
+    vocab 49155, bf16; random weights drawn on the card from the seed)
+    served through ``repro_torch.launch.serve --backend cuda`` with tracing
+    on: 8 requests on 4 slots.  Then on the same weights: at the drop-free
+    capacity factor, prefill + decode against forward (``cuda``, and
+    ``cuda`` and ``float`` at float32 activations with every route of the
+    last position equal), a per-lane step equal to the scalar one and the
+    same requests in two orders; at the config's 1.25, the softmax kernel
+    on every layer's router logits of one 4 x 63 prefill against its plain
+    version, that prefill's dropped slots and whether two orders differ
+    (recorded); ``cuda`` against ``lut`` (recorded); p50 ms per decode
+    step and per prefill, ATen ops per step, peak GB.  Returns the path's
+    launches (the served run), the launches of the checks, and the
+    path's expected."""
+    cfg = registry.get(MOE_NAME).config
+    trace = os.path.join(tmp, "moe_serve.json")
+    argv = MOE_SERVE_ARGS + ["--telemetry-out", trace]
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    served, log = run_lm_serve(argv)
+    seconds = time.perf_counter() - t0
+    path = _rise(before)
+    done = log_fields(log, "serve_done")
+    telemetry_check.check_artifacts(trace, require_metrics=True)
+    metrics = json.loads(Path(trace).with_suffix(".metrics.json").read_text())
+    steps_run = metrics["cell_decode_latency_ms"]["summary"]["n"]
+    prefills = metrics["cell_prefill_latency_ms"]["summary"]["n"]
+    expected = lm_expected(cfg, steps_run + prefills)
+    if path != expected:
+        raise AssertionError(f"the moe server launched {path}, expected "
+                             f"{expected} ({steps_run} decode steps, "
+                             f"{prefills} prefills)")
+    requests = lm_serve.make_requests(cfg, 8, 256, 0)
+    for r in requests:
+        got = served.get(r["id"], [])
+        if len(got) != r["gen"] or not all(0 <= t < cfg.vocab_size
+                                           for t in got):
+            raise AssertionError(f"request {r['id']}: {len(got)} tokens of "
+                                 f"{r['gen']}, or a pad id")
+    if metrics["cell_tokens_total"]["value"] != sum(r["gen"] for r in requests):
+        raise AssertionError("cell_tokens_total is not the tokens served")
+    gc.collect()                        # the server's plan, before the next
+    out = {"phase": "lm_granite_moe", "model": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": [cfg.n_experts, lm_moe.padded_experts(cfg)],
+           "top_k": cfg.top_k, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "argv": argv, "serve_seconds": seconds, "serve_done": done,
+           "tokens_served": {str(k): len(v) for k, v in served.items()},
+           "decode_steps": steps_run, "prefills": prefills,
+           "launches": path, "launches_per_call": lm_expected(cfg, 1),
+           "serve_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # the checks, on plans of the same seed's weights; the drop-free plan
+    # shares the cuda plan's weights
+    checks = ops.launch_counts()
+    params = lm_model.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = runtime.compile_model(cfg, params, backend="cuda", device=dev)
+    free = dataclasses.replace(
+        eng, exec_cfg=eng.exec_cfg.with_(capacity_factor=MOE_DROP_FREE))
+    out["describe"] = eng.describe()
+    out["param_bytes"], out["rom_bytes"] = eng.param_bytes, eng.rom_bytes
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, LM_CHECK_TOKENS).astype(np.int32)
+    failures = []
+    out["decode_vs_forward"] = {}
+    plans = (("cuda", free),
+             ("cuda_float32", dataclasses.replace(
+                 free, exec_cfg=free.exec_cfg.with_(dtype="float32"))),
+             ("float", runtime.compile_model(
+                 cfg.with_(capacity_factor=MOE_DROP_FREE), params,
+                 backend="float", device=dev)),
+             ("float32", runtime.compile_model(
+                 cfg.with_(dtype="float32", capacity_factor=MOE_DROP_FREE),
+                 params, backend="float", device=dev)))
+    for plan, e in plans:
+        with moe_routes() as fwd_routes:
+            f = e.forward(toks)
+        if tuple(f.shape) != (*LM_CHECK_TOKENS, cfg.padded_vocab) or \
+                not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{cfg.name} {plan}: bad forward logits")
+        state = e.init_decode_state(LM_CHECK_TOKENS[0], LM_CHECK_TOKENS[1])
+        _, state = e.prefill(toks[:, :-1], state)
+        lanes = {"layers": {k: v.clone() for k, v in state["layers"].items()},
+                 "index": torch.full((LM_CHECK_TOKENS[0],), state["index"],
+                                     dtype=torch.long, device=dev)}
+        with moe_routes() as dec_routes:
+            dec, _ = e.decode_step(toks[:, -1], state)
+        dec_lanes, _ = e.decode_step(toks[:, -1], lanes)
+        # the real vocabulary: the pad ids' -1e30 would hide every gap
+        last = f[:, -1, :cfg.vocab_size].float()
+        dec = dec[:, :cfg.vocab_size].float()
+        out["decode_vs_forward"][plan] = {
+            "rel": float((dec - last).abs().max() / last.abs().max()),
+            "argmax_equal": bool(torch.equal(dec.argmax(-1),
+                                             last.argmax(-1))),
+            "per_lane_equal": bool(torch.equal(
+                dec, dec_lanes[:, :cfg.vocab_size].float())),
+            **route_agreement(fwd_routes, dec_routes, LM_CHECK_TOKENS[0])}
+        del f, state, lanes, dec, dec_lanes, e, fwd_routes, dec_routes
+    del plans
+    dvf = out["decode_vs_forward"]
+    for plan, lim in (("cuda", MOE_DECODE_REL),
+                      ("cuda_float32", MOE_F32_DECODE_REL),
+                      ("float32", LM_REF_DECODE_REL)):
+        if dvf[plan]["rel"] >= lim or not dvf[plan]["argmax_equal"]:
+            failures.append(f"{plan}: prefill + decode_step against forward: "
+                            f"{dvf[plan]}, over {lim} or another greedy "
+                            "token")
+    for plan in ("cuda_float32", "float32"):
+        if dvf[plan]["expert_set_agree"] != 1.0:
+            failures.append(f"{plan}: a decode step routes to other experts "
+                            f"than the forward: {dvf[plan]}")
+    if not all(v["per_lane_equal"] for v in dvf.values()):
+        failures.append(f"a per-lane decode step differs from the scalar "
+                        f"one: {dvf}")
+    # the same requests in two orders (budgets cut to MOE_ORDER_GEN: two
+    # join groups and their decode steps): equal tokens where nothing
+    # drops; at the config's factor, recorded
+    short = [{**r, "gen": min(r["gen"], MOE_ORDER_GEN)} for r in requests]
+    a = lm_schedule(free, short, range(len(short)))
+    b = lm_schedule(free, short, reversed(range(len(short))))
+    if a != b or sorted(a) != [r["id"] for r in short]:
+        failures.append("drop-free tokens depend on the submission order")
+    out["order_invariant_requests"] = len(a)
+    a = lm_schedule(eng, short, range(len(short)))
+    b = lm_schedule(eng, short, reversed(range(len(short))))
+    ptoks = rng.integers(0, cfg.vocab_size, (LM_SLOTS, 63)).astype(np.int32)
+    with moe_routes() as routes:
+        eng.prefill(ptoks, eng.init_decode_state(LM_SLOTS, 256))
+    equal = [r["equal"] for r in routes]
+    drops = [int((~r["keep"]).sum()) for r in routes]
+    del routes
+    if not all(equal):
+        failures.append(f"the softmax kernel differs from its plain version "
+                        f"on the router logits of layers "
+                        f"{[i for i, e in enumerate(equal) if not e]}")
+    out["router_rows_equal"] = {"rows": list(ptoks.shape), "layers":
+                                len(equal), "equal": all(equal)}
+    out["capacity_1_25"] = {
+        "prefill_tokens": list(ptoks.shape),
+        "capacity": lm_moe._capacity(ptoks.size, cfg),
+        "slots": ptoks.size * cfg.top_k, "dropped_per_layer": drops,
+        "dropped": sum(drops), "order_gen": MOE_ORDER_GEN,
+        "orders_differ": a != b,
+        "requests_differing": sum(a[k] != b[k] for k in a)}
+    # p50 per decode step and per prefill, 4 slots, and ATen ops per step
+    pre = []
+    for _ in range(5):
+        st = eng.init_decode_state(LM_SLOTS, 256)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = eng.prefill(ptoks, st)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    state = st
+    cur = logits.argmax(-1)
+    dsteps = []
+    for _ in range(LM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = eng.decode_step(cur, state)
+        cur = logits.argmax(-1)
+        torch.cuda.synchronize()
+        dsteps.append((time.perf_counter() - t0) * 1e3)
+    with CountOps() as counter:
+        eng.decode_step(cur, state)
+    del state, st
+    out.update(p50_prefill_ms=statistics.median(pre),
+               prefill_tokens=list(ptoks.shape),
+               p50_decode_step_ms=statistics.median(dsteps),
+               decode_tok_s=LM_SLOTS / (statistics.median(dsteps) / 1e3),
+               aten_ops_per_decode_step=counter.n)
+    # cuda against lut (recorded: the attention's masked renormalisation
+    # sets them apart by design)
+    fwd = eng.forward(toks)
+    del eng, free
+    lut = runtime.compile_model(cfg, params, backend="lut", device=dev)
+    del params
+    lut_logits = lut.forward(toks)
+    del lut
+    out["cuda_vs_lut"] = {
+        "max_abs": float((fwd - lut_logits).abs().max()),
+        "argmax_agree": float((fwd.argmax(-1) == lut_logits.argmax(-1))
+                              .float().mean())}
+    del fwd, lut_logits
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    checks = _rise(checks)
+    out.update(check_launches=checks, failures=failures)
+    emit(out)
+    if failures:
+        raise AssertionError(f"{cfg.name}: " + "; ".join(failures))
+    return path, checks, expected
 
 
 # ---------------------------------------------------------------------------
@@ -2446,10 +2763,13 @@ def kernels_line(rows: dict, launches: dict, expected: dict,
             "equal": all(r["equal"] for r in rows[name]),
             "variants": _variants(rows[name], headline_model, headline_batch,
                                   head.get("tag")),
-            # the timed rows at the dense LM's shapes
+            # the timed rows at the dense LM's shapes and the moe router's
             "lm": [{k: r[k] for k in LM_ROW_KEYS if k in r}
                    for r in rows[name]
-                   if r.get("model") == LM_NAME and "ms" in r]})
+                   if r.get("model") == LM_NAME and "ms" in r],
+            "moe": [{k: r[k] for k in LM_ROW_KEYS if k in r}
+                    for r in rows[name]
+                    if r.get("model") == MOE_NAME and "ms" in r]})
     return {"kernels": entries}
 
 
@@ -2534,6 +2854,18 @@ def main() -> None:
         raise AssertionError(f"lm launches {launches['lm']} are not those of "
                              f"its served run and flash forward, {lm_rose}")
     phase_lm_smoke(dev)
+    # the moe path: the moe server's run (granite-moe-3b-a800m at full
+    # width), less the launches of the checks the phase makes after it
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_",
+                                     dir=build.build_dir()) as tmp:
+        moe_rose, moe_checks, moe_exp = phase_lm_granite_moe(dev, tmp)
+    counted = ops.launch_counts()
+    launches["moe"] = {n: counted[n] - moe_checks[n] for n in counted}
+    expected["moe"] = moe_exp
+    if launches["moe"] != moe_rose:
+        raise AssertionError(f"moe launches {launches['moe']} are not those "
+                             f"of its served run, {moe_rose}")
 
     emit(kernels_line(rows, launches, expected, "kwt-1", 64))
     print(info["nvidia_smi"], flush=True)

@@ -30,9 +30,12 @@ JAX's scatter dropping writes past the cache end when a lane stays free
 longer than ``max_len`` steps; PyTorch's ``index_put_`` has no such
 mode.
 
-Families: dense (KV-cache attention, where pad keys can be masked after
-the fact).  Recurrences fold pad tokens irreversibly into their state
-and are refused.
+Families: dense and moe (KV-cache attention, where pad keys can be
+masked after the fact).  Recurrences fold pad tokens irreversibly into
+their state and are refused.  A moe join group shares its experts'
+capacity (``models.moe``): its prompts and their pad tokens compete for
+the same slots, so order invariance holds for moe only where routing
+drops nothing (ROADMAP C8).
 """
 
 from __future__ import annotations
@@ -100,10 +103,10 @@ class LMScheduler:
                  eos_id: Optional[int] = None,
                  prefill_len: Optional[int] = None, metrics=None):
         cfg = self._engine(engine).exec_cfg
-        if cfg.family != "dense":
+        if cfg.family not in transformer.KV_FAMILIES:
             raise NotImplementedError(
-                "continuous batching covers the dense/moe KV-cache families "
-                f"(the port serves dense), not {cfg.family}")
+                "continuous batching covers the dense/moe KV-cache families, "
+                f"not {cfg.family}")
         self._eng_ref = engine
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
         self.prefill_len = prefill_len      # None -> per-group pow2 bucket

@@ -47,6 +47,13 @@ def mesh_context(dp_axes, seq_axis=None):
         _STATE.active, _STATE.dp, _STATE.seq_axis = prev
 
 
+def _mesh_active() -> bool:
+    """Whether the model code runs on a device mesh.  The reference needs
+    ``mesh_context`` and an entered device mesh; the port has no device
+    mesh until ROADMAP queue A item 4, so this is always False."""
+    return False
+
+
 def dp_axes():
     """The data-parallel axes declared by the enclosing ``mesh_context``."""
     return _STATE.dp

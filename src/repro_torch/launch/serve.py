@@ -9,9 +9,11 @@ Execution policy is one flag: ``--backend float|lut_float|lut|cuda``
 resolves through ``runtime.compile_model`` to an Engine that owns the
 paper's pipeline end to end (power-of-2 PTQ weights + LUT softmax /
 activations for the quantising backends; on ``cuda`` the hand-written
-kernels: the LUT softmax in every layer and the int8 matmul for the
-packed head).  Weights are random, drawn from ``--seed`` on the device
-(full width on the card: about 1.9 B parameters for internlm2-1.8b).
+kernels: the LUT softmax in every layer — and in every moe router — and
+the int8 matmul for the packed head).  ``--arch`` takes the dense and the
+moe configs (granite-moe-3b-a800m, deepseek-moe-16b).  Weights are
+random, drawn from ``--seed`` on the device (full width on the card:
+about 1.9 B parameters for internlm2-1.8b, 3.9 B for granite-moe-3b-a800m).
 
 ``--device`` defaults to the card and raises where there is none.  With
 ``--device cpu`` a ``cuda`` plan runs its kernels' plain versions
@@ -23,6 +25,9 @@ Usage:
       --smoke --device cpu --backend cuda --requests 4 --max-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --backend cuda --requests 8 --slots 4 --max-len 256      # the card
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --backend cuda --requests 8 --slots 4 \\
+      --max-len 256                                            # the card
 """
 
 from __future__ import annotations

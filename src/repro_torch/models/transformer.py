@@ -1,6 +1,9 @@
-"""Decoder-only LM assembly, dense family (granite-8b, internlm2, qwen2.5,
-nemotron, chameleon): embedding, the layer stack, the LM head and the
-prefill / decode state machine.  Block math lives in ``layers.py``.
+"""Decoder-only LM assembly for the KV-cache families: dense (granite-8b,
+internlm2, qwen2.5, nemotron, chameleon) and moe (granite-moe,
+deepseek-moe) — embedding, the layer stack, the LM head and the prefill /
+decode state machine.  Block math lives in ``layers.py`` and ``moe.py``;
+a moe block is a dense one with ``moe.apply_moe`` (block key ``"moe"``)
+in place of the MLP.
 
 The reference scans its stacked layers (``lax.scan``); here the stack is
 a Python loop over the same stacked leaves (``blocks``: every leaf
@@ -14,8 +17,7 @@ caches in place and return the state with its index advanced; the
 reference returns new caches instead.  ``merge_decode_state`` builds new
 tensors, so a caller that merges never aliases the states it merges.
 
-The moe, rwkv and hybrid families wait for ROADMAP queue A item 3 and
-raise.
+The rwkv and hybrid families wait for ROADMAP queue A item 3 and raise.
 """
 
 from __future__ import annotations
@@ -26,10 +28,13 @@ from repro_torch.core import quant
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+KV_FAMILIES = ("dense", "moe")
 
 
-def _dense_only(cfg):
-    if cfg.family != "dense":
+def _kv_family(cfg):
+    if cfg.family not in KV_FAMILIES:
         raise NotImplementedError(
             f"family={cfg.family!r} is not ported yet: it waits for ROADMAP "
             f"queue A item 3 ({cfg.family})")
@@ -40,11 +45,15 @@ def _dense_only(cfg):
 # ---------------------------------------------------------------------------
 
 def block_params(cfg, generator, device="cpu"):
-    _dense_only(cfg)
-    return {"ln1": L.norm_params(cfg, device=device),
-            "ln2": L.norm_params(cfg, device=device),
-            "attn": L.attention_params(cfg, generator, device),
-            "mlp": L.mlp_params(cfg, generator, device=device)}
+    _kv_family(cfg)
+    p = {"ln1": L.norm_params(cfg, device=device),
+         "ln2": L.norm_params(cfg, device=device),
+         "attn": L.attention_params(cfg, generator, device)}
+    if cfg.family == "moe":
+        p["moe"] = M.moe_params(cfg, generator, device)
+    else:
+        p["mlp"] = L.mlp_params(cfg, generator, device=device)
+    return p
 
 
 def init_params(cfg, generator: torch.Generator, device=None):
@@ -54,7 +63,7 @@ def init_params(cfg, generator: torch.Generator, device=None):
     ``generator`` on its own device (a CUDA generator draws full-width
     weights on the card); the numbers differ from ``jax.random``'s, so
     parity tests carry weights across as numpy instead."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     device = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     embed = L.he(generator, (cfg.padded_vocab, cfg.d_model), 1.0, dt, device)
@@ -75,22 +84,26 @@ def init_params(cfg, generator: torch.Generator, device=None):
 
 def apply_block(bp, x, cfg, state, *, positions, cache_index=None,
                 kv_len_valid=None):
-    """One pre-norm (or post-norm) dense block; ``state`` is the layer's
-    KV cache or None."""
+    """One pre-norm (or post-norm) dense or moe block; ``state`` is the
+    layer's KV cache or None."""
     if cfg.post_norm:
         a, nc = L.apply_attention(bp["attn"], x, cfg, positions=positions,
                                   cache=state, cache_index=cache_index,
                                   kv_len_valid=kv_len_valid)
         x = L.apply_norm(bp["ln1"], x + a, cfg)
-        f = L.apply_mlp(bp["mlp"], x, cfg)
-        return L.apply_norm(bp["ln2"], x + f, cfg), nc
+        return L.apply_norm(bp["ln2"], x + _ffn(bp, x, cfg), cfg), nc
     a, nc = L.apply_attention(bp["attn"], L.apply_norm(bp["ln1"], x, cfg), cfg,
                               positions=positions, cache=state,
                               cache_index=cache_index,
                               kv_len_valid=kv_len_valid)
     x = x + a
-    f = L.apply_mlp(bp["mlp"], L.apply_norm(bp["ln2"], x, cfg), cfg)
-    return x + f, nc
+    return x + _ffn(bp, L.apply_norm(bp["ln2"], x, cfg), cfg), nc
+
+
+def _ffn(bp, h, cfg):
+    if cfg.family == "moe":
+        return M.apply_moe(bp["moe"], h, cfg)
+    return L.apply_mlp(bp["mlp"], h, cfg)
 
 
 def _layer(leaf, i: int):
@@ -137,7 +150,7 @@ def _embed(params, tokens, cfg):
 
 def forward(params, tokens, cfg, *, positions=None):
     """tokens [B,S] -> logits [B,S,V] (teacher-forced, no cache)."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     s = tokens.shape[1]
     x = _embed(params, tokens, cfg)
     if positions is None:
@@ -166,7 +179,7 @@ def kv_dtype(params, cfg) -> torch.dtype:
 def init_decode_state(cfg, batch, max_len, device=None, dtype=None):
     """Zero caches of ``max_len`` slots, in ``dtype`` (default: the model
     dtype; ``kv_dtype`` gives the one a plan computes in)."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     device = resolve_device(device)
     per = L.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
     layers = {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
@@ -188,7 +201,7 @@ def prefill(params, tokens, cfg, state):
     a per-lane index the pass is one token (``decode_step``): lanes
     joining mid-flight prefill a fresh state and merge it
     (``cell.scheduler``)."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     s = tokens.shape[1]
     x = _embed(params, tokens, cfg)
     idx = _index(state["index"])
@@ -244,7 +257,7 @@ def merge_decode_state(old, new, lane_mask):
 def forward_no_blocks(params, tokens, cfg):
     """Embed -> final norm -> head only (the cost decomposition's
     no-blocks pass)."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     x = _embed(params, tokens, cfg)
     x = L.apply_norm(params["ln_f"], x, cfg)
     return _head(params, x, cfg)

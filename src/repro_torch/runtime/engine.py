@@ -12,10 +12,10 @@ ONCE, places the parameters on the device, and returns an ``Engine``:
     emb    = eng.embed_frames(frames)     # streaming building blocks
     logits = eng.encode_window(window)
 
-Dense LM engines expose ``init_decode_state`` / ``prefill`` /
-``decode_step`` (and ``forward``: tokens -> logits) instead, which
-``cell.scheduler`` and ``launch/serve.py`` run off; each family's entry
-points raise on the other's engine.
+LM engines (the dense and moe families) expose ``init_decode_state`` /
+``prefill`` / ``decode_step`` (and ``forward``: tokens -> logits)
+instead, which ``cell.scheduler`` and ``launch/serve.py`` run off; each
+kind's entry points raise on the other's engine.
 
 Execution is eager under ``torch.inference_mode()``: there is no jit to
 plan, so the reference's jitted programs, its flat-leaf dispatch and its
@@ -67,8 +67,8 @@ def _model_module(cfg):
     if cfg.family == "kwt":
         from repro_torch.models import kwt
         return kwt
-    if cfg.family == "dense":
-        from repro_torch.models import transformer
+    from repro_torch.models import transformer
+    if cfg.family in transformer.KV_FAMILIES:
         return transformer
     raise NotImplementedError(
         f"family={cfg.family!r} is not ported yet: it waits for ROADMAP "
@@ -488,11 +488,11 @@ def compile_model(cfg, params, backend="float",
     second pass; the logits are the untapped pass's, equal to a
     ``taps=False`` plan's.
 
-    Dense LM families get PARTIAL residency under an integer-executing
-    backend (``lut`` / ``cuda``): embedding and head stay packed, the
-    blocks are dequantised, and the plan is pinned integer-executing
-    (``_lm_partial_resident``); ``integer_resident`` overrides that as it
-    does for KWT.
+    The LM families (dense, moe) get PARTIAL residency under an
+    integer-executing backend (``lut`` / ``cuda``): embedding and head stay
+    packed, the blocks are dequantised, and the plan is pinned
+    integer-executing (``_lm_partial_resident``); ``integer_resident``
+    overrides that as it does for KWT.
 
     ``device=None`` resolves to the CUDA device and raises when there is
     none.  The ``cuda`` backend on a CPU device raises, unless

@@ -239,8 +239,9 @@ def test_init_params_layout_matches_reference_and_device_rule():
 
 def test_later_slices_raise_not_implemented():
     """RMSNorm, gated MLPs, RoPE and the float KV cache came with the dense
-    LM slice (tests/test_torch_lm_layers.py); what stays later: the
-    sliding window (hybrid), the int8 KV cache and the moe family."""
+    LM slice (tests/test_torch_lm_layers.py), the moe family with its own
+    (tests/test_torch_moe.py); what stays later: the sliding window
+    (hybrid), the int8 KV cache and the rwkv family."""
     from repro_torch.configs.base import QuantConfig
     from repro_torch.models import transformer as tT
     tcfg = tregistry.get("kwt-tiny").config
@@ -253,5 +254,5 @@ def test_later_slices_raise_not_implemented():
     with pytest.raises(NotImplementedError):
         tL.apply_attention({}, x, kvq, cache={})
     with pytest.raises(NotImplementedError):
-        tT.init_params(tregistry.get("granite-moe-3b-a800m").smoke,
+        tT.init_params(tregistry.get("rwkv6-3b").smoke,
                        torch.Generator(), "cpu")

@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""Where a dense LM's prefill + decode_step departs from its forward.
+"""Where an LM's prefill + decode_step departs from its forward.
 
     python tools/lm_decode_gap.py [--arch internlm2-1.8b] [--smoke]
         [--device cpu] [--cpu-twin] [--out FILE]
 
-The check of ``chip_smoke.py``'s phase ``lm_internlm2`` (a prefill of
-S - 1 tokens into caches of S slots and one ``decode_step``, against the
-last logits of ``forward``; tokens [2, 64] from numpy seed 7, weights from
-seed 0 drawn on the device), taken apart, plan by plan:
+The check of ``chip_smoke.py``'s phases ``lm_internlm2`` and
+``lm_granite_moe`` (a prefill of S - 1 tokens into caches of S slots and
+one ``decode_step``, against the last logits of ``forward``; tokens
+[2, 64] from numpy seed 7, weights from seed 0 drawn on the device; a moe
+config at the drop-free capacity factor 8.0, as the phase and the
+reference's own test take it), taken apart, plan by plan:
 
 - ``layers``: for each block, the last position's output, decode against
   forward: the largest difference over the largest magnitude;
 - ``head_in``: the same for the head's input (after the final norm), and
   ``codes_differ``: how many of its eq-9 codes (the integer head's
   quantised input, ``input_exponent``) differ;
-- ``rel``: the logits' gap, as the phase computes it, with ``argmax_equal``;
+- ``rel``: the logits' gap over the real vocabulary, as the phases
+  compute it, with ``argmax_equal``;
   ``float_head_rel``: the gap the same two head inputs give through the
   dequantised head in float64, so that ``rel`` less it is what the head's
   quantiser adds;
 - ``per_lane_equal``: the decode with a per-lane ``[B]`` index (the
   scheduler's path: scatter write, per-lane masks) against the scalar one,
-  ``torch.equal``.
+  ``torch.equal``;
+- moe only, ``expert_set_agree`` / ``slot_order_agree``: over (layer,
+  lane), the share of the last position's routes whose set of experts,
+  and whose slot order, the decode step and the forward agree on, and
+  ``first_route_flip``: the first layer whose expert sets differ.
 
 Plans: ``cuda``, and with float32 activations; ``lut`` and its variants with a LUT switched off
 (``softmax=exact``, ``silu=exact``, both), each with bfloat16 and with
@@ -51,21 +58,24 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.tree import tree_map  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 
 TOKENS = (2, 64)
+DROP_FREE = 8.0     # a moe capacity factor under which no slot drops
 
 
 class Recorder:
-    """Keeps the last position of every block output and of the head's
-    input while installed (``models.transformer`` looks both up at call
-    time)."""
+    """Keeps the last position of every block output, of the head's input
+    and, in a moe block, of its routes while installed
+    (``models.transformer`` looks all three up at call time)."""
 
     def __init__(self):
-        self.blocks, self.head_in = [], None
+        self.blocks, self.head_in, self.routes = [], None, []
 
     def __enter__(self):
         self._block, self._head = lm.apply_block, lm._head
+        self._moe = moe.apply_moe
 
         def block(*a, **kw):
             x, st = self._block(*a, **kw)
@@ -76,11 +86,21 @@ class Recorder:
             self.head_in = (x if x.ndim == 2 else x[:, -1]).detach().clone()
             return self._head(params, x, cfg)
 
+        def moe_block(p, x, cfg):
+            # every position, as the block routes them: a product of
+            # another shape could round the router logits apart
+            b, s, d = x.shape
+            _, idx = moe._route(x.reshape(b * s, d), p["router"], cfg)
+            self.routes.append(idx.reshape(b, s, -1)[:, -1].cpu())
+            return self._moe(p, x, cfg)
+
         lm.apply_block, lm._head = block, head
+        moe.apply_moe = moe_block
         return self
 
     def __exit__(self, *exc):
         lm.apply_block, lm._head = self._block, self._head
+        moe.apply_moe = self._moe
 
 
 def _rel(a, b) -> float:
@@ -93,6 +113,19 @@ def _head_weight(eng):
     if isinstance(w, quant.QTensor):
         return quant.resident_values(w).double()
     return w.double()
+
+
+def _routes(fwd_routes, dec_routes) -> dict:
+    """Route agreement of the last position (moe; empty for dense)."""
+    if not dec_routes:
+        return {}
+    sets = [(f.sort(-1).values == d.sort(-1).values).all(-1)
+            for f, d in zip(fwd_routes, dec_routes)]
+    order = [(f == d).all(-1) for f, d in zip(fwd_routes, dec_routes)]
+    return {"expert_set_agree": float(torch.cat(sets).float().mean()),
+            "slot_order_agree": float(torch.cat(order).float().mean()),
+            "first_route_flip": next(
+                (i for i, ok in enumerate(sets) if not bool(ok.all())), None)}
 
 
 def _clone(state):
@@ -120,14 +153,16 @@ def gap(eng, toks) -> dict:
     x_exp = cfg.quant.input_exponent if cfg.quant is not None else 5
     codes = int((quant.quantize_act(hf, x_exp)
                  != quant.quantize_act(hd, x_exp)).sum())
-    last = fwd.double().cpu()
-    float_head = (hd.double() @ w - hf.double() @ w).abs().max().cpu()
-    return {"rel": _rel(dec, fwd),
+    v = cfg.vocab_size        # the pad ids' -1e30 would hide every gap
+    last = fwd[:, :v].double().cpu()
+    float_head = (hd.double() @ w - hf.double() @ w)[:, :v].abs().max().cpu()
+    return {"rel": _rel(dec[:, :v], fwd[:, :v]),
             "argmax_equal": bool(torch.equal(dec.argmax(-1), fwd.argmax(-1))),
             "float_head_rel": float(float_head / last.abs().max()),
             "head_in": _rel(hd, hf), "codes_differ": codes,
             "head_in_numel": hd.numel(),
             "per_lane_equal": bool(torch.equal(dec, dec_lanes)),
+            **_routes(fwd_rec.routes, dec_rec.routes),
             "layers": layers,
             "first_layer_over_1e-3": next(
                 (i for i, r in enumerate(layers) if r > 1e-3), None)}
@@ -163,6 +198,8 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     spec = registry.get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
+    if cfg.family == "moe":
+        cfg = cfg.with_(capacity_factor=DROP_FREE)
     out = open(args.out, "w") if args.out else None
 
     def emit(obj):
