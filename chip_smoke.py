@@ -6,8 +6,9 @@ arguments.  It drives the port's main paths — the Keyword Transformer
 served offline through ``repro_torch.runtime``, streamed hop by hop, and
 trained with quantisation-aware training, the dense LM (internlm2-1.8b
 at full width) and the moe LM (granite-moe-3b-a800m at full width) served
-with continuous batching — on the card, and is the quickest proof that the port still builds and starts
-there:
+with continuous batching, the recurrent LMs (rwkv6-3b and hymba-1.5b at
+full width) served as one drain batch — on the card, and is the quickest
+proof that the port still builds and starts there:
 
 1. ``device``          the card, its power limit, TF32 off.
 2. ``build``           compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc``
@@ -44,7 +45,13 @@ there:
    under ``lm``.  The moe router's unmasked Q8.24 rows of 40 experts
    (granite-moe-3b-a800m) at a decode step of 4 slots ``[4, 40]`` and a
    join prefill of 4 x 63 tokens ``[252, 40]``, variant ``fixed router``,
-   beside ``torch.softmax``, under ``moe``.
+   beside ``torch.softmax``, under ``moe``.  The recurrent LMs' heads at a
+   decode step of 4 lanes — rwkv6-3b ``[4, 2560] @ [2560, 65536]`` and
+   hymba-1.5b ``[4, 1600] @ [1600, 32128]`` (a K that is no multiple of
+   the 256-wide slab), float32 and bf16 activations — under ``rwkv`` and
+   ``hybrid``, and hymba's masked softmax rows of 25 heads / 5 KV over its
+   ring of 128 slots: the causal prefill of 63 tokens and a ring-decode
+   step with one validity bound for every lane, under ``hybrid``.
    ``lut_attention`` cannot be ``torch.equal``: the kernel's own order of
    the dot over D moves an occasional score across a 1/32 LUT bin.  In
    its LUT mode it is held to its plain version (``ref.lut_attention``,
@@ -205,10 +212,45 @@ there:
                        ``cuda`` against ``lut`` (recorded); p50 ms per
                        decode step and per prefill, ATen ops per step, peak
                        GB.
+16. ``lm_rwkv6``       rwkv6-3b at full width (32 layers, d 2560, 40 heads
+17. ``lm_hymba``       of 64, d_ff 8960, vocab 65536, bf16), then
+                       hymba-1.5b at full width (32 layers, d 1600, 25 heads
+                       / 5 KV, mamba state 16, window 2048, vocab 32001,
+                       bf16); weights drawn on the card from a seed by the
+                       port's ``init_params`` (the models' own decays).
+                       Served as the reference serves the recurrent
+                       families (``LMScheduler`` refuses them, as it does
+                       there): ``compile_model(backend="cuda")``, one
+                       ``Engine.prefill`` of 4 requests of 63 tokens, then
+                       64 greedy ``decode_step`` calls; every request gets
+                       its 64 tokens; the launches equal one matmul (the
+                       head) per call, and for hymba one softmax per layer
+                       per call.  Then on the same weights: the head
+                       kernel ``torch.equal`` to its plain version on the
+                       real final hidden states of a prefill and of a
+                       decode step; hymba's softmax kernel ``torch.equal``
+                       to its plain version on every layer's real masked
+                       scores of a prefill and of a ring-decode step;
+                       prefill of 63 + one decode step against
+                       ``forward`` of 64, and a prefill of 63 split in two
+                       against one (state continuity): on ``cuda`` within
+                       ``RECURRENT_DECODE_REL`` / ``_CONTINUITY_REL``, the
+                       greedy tokens equal or near ties; on ``float`` at
+                       float32 activations within rel 1e-4, the greedy
+                       tokens equal; for rwkv a per-lane
+                       step equal to the scalar one; ``cuda`` against
+                       ``lut`` (recorded); p50 ms per decode step and per
+                       prefill, ATen ops per step, peak GB and seconds.
+
+   ``lm_dense_smoke`` (14) also runs the rwkv6-3b smoke config (and its
+   fused-projection and padded-head variants) and the hymba-1.5b smoke
+   config, and 20 tokens of hymba decoded into its ring of 8 slots on the
+   card against ``forward`` (the ring wraps twice).
 
 The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
 the train phases (11, 12), the LM server with its ``flash_lut`` forward
-(13) and the moe server (15) are the main paths: the counters go to 0
+(13), the moe server (15) and the two recurrent LMs' drain batches (16,
+17) are the main paths: the counters go to 0
 just before each group and are read just after it; the launches of the
 stream phases' check forwards, of the cell phase's checks (hot-swap's warm
 and probe forwards, the refused artifact's, the taps plan's) and of the
@@ -918,21 +960,44 @@ LM_ATTENTION = (2, 16, 8, 1024, 1024, 128)
 # a decode step of 4 slots and a join prefill of 4 x 63 tokens
 MOE_NAME = "granite-moe-3b-a800m"
 MOE_ROUTER_ROWS = (LM_SLOTS, LM_SLOTS * 63)
+# the recurrent LMs' drain batch (phases lm_rwkv6 and lm_hymba): 4 lanes,
+# prompts of 63 tokens, 64 decode steps, a decode state of 128 slots (for
+# hymba a ring of min(128, 2048) slots)
+RWKV_NAME = "rwkv6-3b"
+HYMBA_NAME = "hymba-1.5b"
+RECURRENT_LANES = 4
+RECURRENT_PROMPT = 63
+RECURRENT_STEPS = 64
+RECURRENT_SLOTS = 128
 
 
-def check_masked_softmax(dev, gen, kind, sk, heads, lanes):
+def masked_plain(s, mask):
+    """``approx.masked_softmax(s, mask, mode="cuda")`` with the kernel's
+    plain version in the kernel's place."""
+    sm = torch.where(mask, s, torch.finfo(torch.float32).min)
+    out = torch.where(mask, ref.lut_softmax(sm, fixed=True), 0.0)
+    return out / out.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+
+
+def check_masked_softmax(dev, gen, kind, sk, groups, lanes, model=LM_NAME,
+                         sq=None):
     """The cuda masked softmax (``approx.masked_softmax(mode="cuda")``: the
     kernel on the masked scores, then zeroed and renormalised) against the
     same with the kernel's plain version, on the card, ``torch.equal``.
-    ``causal``: one prefill of ``sk`` queries against ``sk`` keys;
-    ``per_lane``: one decode query per lane against a cache of ``sk``
-    slots, each lane valid up to its own depth."""
-    sq = sk if kind == "causal" else 1
-    s = torch.randn((lanes, heads // 2, 2, sq, sk), generator=gen,
+    ``groups``: (KV heads, queries per KV head).  ``causal``: one prefill
+    of ``sq`` queries (default ``sk``) against ``sk`` keys; ``per_lane``: one decode query
+    per lane against a cache of ``sk`` slots, each lane valid up to its
+    own depth; ``ring``: one decode query per lane against a ring of
+    ``sk`` slots, every lane valid up to one shared bound (hybrid)."""
+    sq = (sq or sk) if kind == "causal" else 1
+    kv, g = groups
+    s = torch.randn((lanes, kv, g, sq, sk), generator=gen,
                     device=dev) * 3.0
     kpos = torch.arange(sk, device=dev)
     if kind == "causal":
         mask = (torch.arange(sq, device=dev)[:, None] >= kpos)[None, None, None]
+    elif kind == "ring":
+        mask = (kpos < sk // 2 + 1)[None, :].expand(sq, sk)[None, None, None]
     else:
         depth = torch.randint(1, sk + 1, (lanes,), generator=gen, device=dev)
         mask = (kpos < depth[:, None, None]).expand(lanes, sq, sk)[:, None, None]
@@ -940,10 +1005,9 @@ def check_masked_softmax(dev, gen, kind, sk, heads, lanes):
     sm = torch.where(mask, s, torch.finfo(torch.float32).min)
 
     def plain():
-        out = torch.where(mask, ref.lut_softmax(sm, fixed=True), 0.0)
-        return out / out.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+        return masked_plain(s, mask)
 
-    row = {"variant": f"fixed masked {kind}", "model": LM_NAME,
+    row = {"variant": f"fixed masked {kind}", "model": model,
            "shape": [s.numel() // sk, sk], "equal": True,
            "max_abs_err": require_equal(f"masked lut_softmax {kind} sk={sk}",
                                         got, plain())}
@@ -976,7 +1040,9 @@ def lm_kernel_rows(dev, gen, rows) -> None:
     for sk in LM_SOFTMAX_SK:
         for kind in ("causal", "per_lane"):
             rows["lut_softmax"].append(check_masked_softmax(
-                dev, gen, kind, sk, cfg.n_heads, LM_SLOTS))
+                dev, gen, kind, sk, (cfg.n_kv_heads,
+                                     cfg.n_heads // cfg.n_kv_heads),
+                LM_SLOTS))
     r = check_attention(dev, gen, LM_ATTENTION, True, True, timed=True,
                         strided=True)
     rows["lut_attention"].append({"model": LM_NAME, "batch": LM_ATTENTION[0],
@@ -986,6 +1052,24 @@ def lm_kernel_rows(dev, gen, rows) -> None:
         r = check_softmax(dev, gen, m, experts, True, timed=True)
         rows["lut_softmax"].append({**r, "model": MOE_NAME, "batch": m,
                                     "variant": "fixed router"})
+    # the recurrent LMs: the heads at a decode step of 4 lanes, hymba's
+    # masked softmax rows (prefill and ring decode)
+    for name in (RWKV_NAME, HYMBA_NAME):
+        rc = registry.get(name).config
+        for x_dtype in (torch.float32, torch.bfloat16):
+            r = check_matmul(dev, gen, "lm_head", RECURRENT_LANES, rc.d_model,
+                             rc.padded_vocab, per_channel=True, x_float=True,
+                             axis_range=(-8, 9), timed=True, x_dtype=x_dtype)
+            rows["int8_matmul"].append({"model": name,
+                                        "batch": RECURRENT_LANES, **r})
+    hc = registry.get(HYMBA_NAME).config
+    for kind in ("causal", "ring"):
+        # the prefill's 63 queries and the decode step's one, against the
+        # ring's 128 slots
+        rows["lut_softmax"].append({**check_masked_softmax(
+            dev, gen, kind, RECURRENT_SLOTS,
+            (hc.n_kv_heads, hc.n_heads // hc.n_kv_heads), RECURRENT_LANES,
+            HYMBA_NAME, sq=RECURRENT_PROMPT), "batch": RECURRENT_LANES})
 
 
 # ---------------------------------------------------------------------------
@@ -2115,13 +2199,15 @@ LM_SMOKE_MIN_ARGMAX = 0.9
 def lm_expected(cfg, calls: int, attention: str = "xla") -> dict:
     """Per LM call (``forward``, ``prefill`` or ``decode_step`` of at most
     ``Q_CHUNK`` queries): one softmax per layer under ``xla`` (one attention
-    launch per layer under ``flash_lut``, forward only) and, on a moe
-    config, one more per layer for the router; one int8 matmul (the packed
-    head; the experts are batched float products); no GELU (SiLU is the
-    LUT, no kernel)."""
+    launch per layer under ``flash_lut``, forward only; none for rwkv,
+    which has no attention) and, on a moe config, one more per layer for
+    the router; one int8 matmul (the packed head; the experts are batched
+    float products, the recurrences plain PyTorch); no GELU (SiLU,
+    softplus and the sigmoid are the LUT, no kernel)."""
     flash = attention == "flash_lut"
     routers = cfg.n_layers * calls if cfg.family == "moe" else 0
-    return {"lut_softmax": (0 if flash else cfg.n_layers * calls) + routers,
+    attn = 0 if flash or cfg.family == "rwkv" else cfg.n_layers * calls
+    return {"lut_softmax": attn + routers,
             "lut_gelu": 0, "int8_matmul": calls,
             "lut_attention": cfg.n_layers * calls if flash else 0}
 
@@ -2331,7 +2417,9 @@ def seeded_lm_params(cfg, seed: int) -> dict:
         if isinstance(tree, dict):
             return {k: walk(v, stacked or k == "blocks",
                             norm or k in ("ln1", "ln2", "ln_f", "q_norm",
-                                          "k_norm")) for k, v in tree.items()}
+                                          "k_norm", "ln_x", "out_norm_a",
+                                          "out_norm_m"))
+                    for k, v in tree.items()}
         shape = tuple(tree.shape)
         per = shape[1:] if stacked else shape
         if norm:
@@ -2342,21 +2430,34 @@ def seeded_lm_params(cfg, seed: int) -> dict:
     return walk(layout)
 
 
+# the recurrent smoke configs of phase lm_dense_smoke: rwkv6-3b in its
+# projection layouts, hymba-1.5b (window 8)
+SMOKE_RECURRENT = [(RWKV_NAME, {}), (RWKV_NAME, {"rwkv_fused_proj": True}),
+                   (RWKV_NAME, {"rwkv_head_pad": True}), (HYMBA_NAME, {})]
+RING_WRAP_TOKENS = 20         # hymba's smoke ring of 8 slots wraps twice
+
+
 def phase_lm_smoke(dev) -> dict:
-    """The five dense smoke configs and the two moe ones on the card under
-    float, lut and cuda: decode == forward (a moe config at the drop-free
-    capacity factor, on a plan that shares the weights), and each plan
-    against the same plan on the CPU (the cuda plan there through its
-    kernels' plain versions); the cuda plan's launches per call."""
+    """The five dense smoke configs, the two moe ones and the recurrent
+    ones (rwkv6-3b in three layouts, hymba-1.5b) on the card under float,
+    lut and cuda: decode == forward (a moe config at the drop-free capacity
+    factor, on a plan that shares the weights; a hybrid one on a prompt
+    within its window), and each plan against the same plan on the CPU
+    (the cuda plan there through its kernels' plain versions); the cuda
+    plan's launches per call; hymba decoded token by token across its
+    ring's wrap against forward."""
     out = {"phase": "lm_dense_smoke", "configs": []}
     failures = []
-    for name in registry.DENSE + [MOE_NAME, "deepseek-moe-16b"]:
-        cfg = registry.get(name).smoke
+    for name, kw in [(n, {}) for n in registry.DENSE + [MOE_NAME,
+                     "deepseek-moe-16b"]] + SMOKE_RECURRENT:
+        cfg = registry.get(name).smoke.with_(**kw)
         moe = cfg.family == "moe"
         np_tree = seeded_lm_params(cfg, 0)
+        # a hybrid prefill longer than the window leaves the ring empty (C10)
+        s = min(16, cfg.sliding_window) if cfg.family == "hybrid" else 16
         toks = np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (2, 16)).astype(np.int32)
-        row = {"model": name, "plans": {}}
+            0, cfg.vocab_size, (2, s)).astype(np.int32)
+        row = {"model": name, "variant": kw, "plans": {}}
         for plan in ("float", "lut", "cuda"):
             eng = runtime.compile_model(
                 cfg, convert.from_numpy_tree(np_tree, dev), backend=plan,
@@ -2396,14 +2497,34 @@ def phase_lm_smoke(dev) -> dict:
                                   "card_vs_cpu_argmax_agree": agree}
             ok = rel < LM_REF_DECODE_REL and diff <= atol and \
                 agree >= LM_SMOKE_MIN_ARGMAX
+            if cfg.family == "hybrid":
+                wrap = ring_wrap_rel(eng, cfg)
+                row["plans"][plan]["ring_wrap_rel"] = wrap
+                ok = ok and wrap < LM_REF_DECODE_REL
             if not ok:
-                failures.append(f"{name} {plan}: {row['plans'][plan]}")
+                failures.append(f"{name} {kw} {plan}: {row['plans'][plan]}")
         out["configs"].append(row)
     out["failures"] = failures
     emit(out)
     if failures:
         raise AssertionError("; ".join(failures))
     return out
+
+
+def ring_wrap_rel(eng, cfg) -> float:
+    """``RING_WRAP_TOKENS`` tokens decoded one at a time into a fresh
+    state (the ring wraps) against ``forward`` of them: the largest gap
+    over the largest magnitude."""
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, RING_WRAP_TOKENS)).astype(np.int32)
+    state = eng.init_decode_state(2, 64)
+    outs = []
+    for t in range(RING_WRAP_TOKENS):
+        lg, state = eng.decode_step(toks[:, t], state)
+        outs.append(lg)
+    ref = eng.forward(toks).float()
+    return float((torch.stack(outs, 1).float() - ref).abs().max()
+                 / ref.abs().max())
 
 
 MOE_SERVE_ARGS = ["--arch", MOE_NAME, "--backend", "cuda", "--requests",
@@ -2674,6 +2795,298 @@ def phase_lm_granite_moe(dev, tmp: str) -> tuple:
     return path, checks, expected
 
 
+# prefill of 63 tokens + one decode step (a state of 64 slots) against
+# forward's last logits over 64, on the cuda plan at bf16, over the real
+# vocabulary; set from the gap measured on an H100 80GB HBM3 at 700 W
+# (PERF.md §6, tools/lm_decode_gap.py): 0.0810 (rwkv6-3b) and 0.0551 (hymba-1.5b) on
+# cuda, 0.0154 / 0.0248 on the bf16 float plan, 2.3e-6 / 2.0e-6 on float
+# at float32 activations.  With float32 activations and exact sigmoid /
+# SiLU / softplus, decode == forward at the logits to the bit; the LUT
+# bins (a ulp of the float32 products at another row count takes the
+# neighbouring bin of the sigmoid table), the bf16 residual stream and the
+# head's eq-9 codes turn that rounding into steps that 32 random layers
+# carry on, as for the dense LM.  Greedy tokens: equal, or (bf16 plans)
+# a near tie — the forward's top two within twice that lane's gap (rwkv's
+# vocabulary of 65536 random logits: one lane of two flipped in run 1).
+RECURRENT_DECODE_REL = {RWKV_NAME: 0.15, HYMBA_NAME: 0.1}
+# state continuity, a prefill of 31 then 32 tokens against one of 63:
+# every chunk after the first falls elsewhere, so more of the sequence
+# rounds apart than in a decode step; measured on the same card 0.2592 /
+# 0.0732 on cuda, 2.6e-5 / 4.1e-6 on float at float32 (PERF.md §6).  A
+# lost state reads near 1 (ROADMAP C10's empty ring: 1.10)
+RECURRENT_SPLIT = 31
+RECURRENT_CONTINUITY_REL = 0.5
+RECURRENT_TIMED_PREFILLS = 5
+
+
+@contextlib.contextmanager
+def head_inputs():
+    """While open, the LM head's input of every call is kept (a clone)."""
+    seen = []
+    head = lm_model._head
+
+    def recording(params, x, cfg):
+        seen.append(x.detach().clone())
+        return head(params, x, cfg)
+
+    lm_model._head = recording
+    try:
+        yield seen
+    finally:
+        lm_model._head = head
+
+
+@contextlib.contextmanager
+def masked_scores():
+    """While open, every masked softmax's scores and mask are kept."""
+    seen = []
+    fn = approx.masked_softmax
+
+    def recording(s, mask, mode="exact"):
+        seen.append((s.detach().clone(), mask))
+        return fn(s, mask, mode=mode)
+
+    approx.masked_softmax = recording
+    try:
+        yield seen
+    finally:
+        approx.masked_softmax = fn
+
+
+def drain_batch(eng, prompts, steps: int) -> dict:
+    """The recurrent families' serving, as the reference's: one
+    ``prefill`` of every request's prompt, then ``steps`` greedy
+    ``decode_step`` calls on every lane.  Returns each lane's decoded
+    tokens, the prefill's and each step's milliseconds."""
+    lanes = prompts.shape[0]
+    state = eng.init_decode_state(lanes, RECURRENT_SLOTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = eng.prefill(prompts, state)
+    cur = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tokens, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, state = eng.decode_step(cur, state)
+        cur = logits.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(cur)
+    return {"tokens": torch.stack(tokens, 1).cpu(), "prefill_ms": prefill_ms,
+            "step_ms": step_ms, "state": state, "last": cur}
+
+
+def greedy_check(got, want) -> dict:
+    """Greedy tokens of ``got`` against ``want`` ([B, V], float): equal,
+    or a near tie, where a lane's tokens differ while the forward's top two
+    lie within twice that lane's largest gap."""
+    eq = got.argmax(-1) == want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    tie = margin <= 2 * (got - want).abs().amax(-1)
+    return {"argmax_equal": bool(eq.all()),
+            "near_tie_lanes": int((~eq & tie).sum()),
+            "greedy_ok": bool((eq | tie).all()),
+            "top2_margin": margin.tolist()}
+
+
+def require_head_equal(eng, xs: list, what: str) -> dict:
+    """The head kernel (the cuda plan's packed ``lm_head`` product) on real
+    final hidden states against its plain version, ``torch.equal``."""
+    w, q = eng.params["lm_head"], eng.exec_cfg.quant
+    for x in xs:
+        got = ops.int8_matmul(x, w, x_exp=q.input_exponent,
+                              residual_bits=q.residual_bits)
+        want = quant.int_exec_einsum("...d,dv->...v", x, w,
+                                     x_exp=q.input_exponent,
+                                     residual_bits=q.residual_bits)
+        require_equal(f"{what} head {tuple(x.shape)} {x.dtype}", got, want)
+    return {"calls": len(xs), "shapes": [list(x.shape) for x in xs],
+            "dtype": str(xs[0].dtype), "equal": True}
+
+
+def require_softmax_equal(seen: list, what: str) -> dict:
+    """The softmax kernel on real masked scores (every recorded layer)
+    against its plain version, ``torch.equal``."""
+    for i, (s, mask) in enumerate(seen):
+        require_equal(f"{what} masked softmax, layer {i}",
+                      approx.masked_softmax(s, mask, mode="cuda"),
+                      masked_plain(s, mask))
+    return {"layers": len(seen), "scores": list(seen[0][0].shape),
+            "mask": list(seen[0][1].shape), "equal": True}
+
+
+def phase_lm_recurrent(dev, name: str) -> tuple:
+    """A recurrent LM at full width (rwkv6-3b or hymba-1.5b, bf16; random
+    weights drawn on the card by the port's ``init_params`` from seed 0)
+    served on the ``cuda`` plan as one drain batch (``drain_batch``): 4
+    requests of 63 tokens, 64 decode steps.  Then on the same weights:
+    the head kernel on real hidden states, hymba's softmax kernel on real
+    masked scores (prefill and ring decode), prefill + decode against
+    forward (``cuda``; ``float``; ``float`` at float32 activations),
+    rwkv's per-lane step against the scalar one, state continuity,
+    ``cuda`` against ``lut``, p50 ms per decode step and per prefill,
+    ATen ops per step, peak GB.  Returns the path's launches (the drain
+    batch), the launches of the checks, and the path's expected."""
+    t_phase = time.perf_counter()
+    cfg = registry.get(name).config
+    hybrid = cfg.family == "hybrid"
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_model.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = runtime.compile_model(cfg, params, backend="cuda", device=dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (RECURRENT_LANES, RECURRENT_PROMPT)).astype(np.int32)
+    # the path: one drain batch
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    served = drain_batch(eng, prompts, RECURRENT_STEPS)
+    serve_seconds = time.perf_counter() - t0
+    path = _rise(before)
+    expected = lm_expected(cfg, 1 + RECURRENT_STEPS)
+    if path != expected:
+        raise AssertionError(f"the {name} drain batch launched {path}, "
+                             f"expected {expected}")
+    toks = served["tokens"]
+    if tuple(toks.shape) != (RECURRENT_LANES, RECURRENT_STEPS) or \
+            int(toks.max()) >= cfg.vocab_size or int(toks.min()) < 0:
+        raise AssertionError(f"{name}: {tuple(toks.shape)} tokens served, "
+                             "or a pad id")
+    step_p50 = statistics.median(served["step_ms"])
+    out = {"phase": f"lm_{'hymba' if hybrid else 'rwkv6'}", "model": name,
+           "family": cfg.family, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": cfg.dtype, "describe": eng.describe(),
+           "param_bytes": eng.param_bytes, "rom_bytes": eng.rom_bytes,
+           "requests": RECURRENT_LANES, "prompt": RECURRENT_PROMPT,
+           "decode_steps": RECURRENT_STEPS, "slots": RECURRENT_SLOTS,
+           "tokens_served": {str(i): len(t) for i, t in enumerate(toks.tolist())},
+           "serve_seconds": serve_seconds,
+           "served_prefill_ms": served["prefill_ms"],
+           "p50_decode_step_ms": step_p50,
+           "decode_tok_s": RECURRENT_LANES / (step_p50 / 1e3),
+           "launches": path, "launches_per_call": lm_expected(cfg, 1),
+           "serve_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del served
+    failures = []
+
+    # the checks
+    checks = ops.launch_counts()
+    with head_inputs() as heads, masked_scores() as pre_scores:
+        state = eng.init_decode_state(RECURRENT_LANES, RECURRENT_SLOTS)
+        logits, state = eng.prefill(prompts, state)
+    with head_inputs() as dheads, masked_scores() as dec_scores:
+        eng.decode_step(logits.argmax(-1), state)
+    out["head_equal"] = require_head_equal(eng, heads + dheads, name)
+    if hybrid:
+        out["softmax_equal"] = {
+            "prefill": require_softmax_equal(pre_scores, f"{name} prefill"),
+            "ring_decode": require_softmax_equal(dec_scores,
+                                                 f"{name} ring decode")}
+    del heads, dheads, pre_scores, dec_scores, state, logits
+    # p50 per prefill (fresh states) and ATen ops per decode step
+    pre = []
+    for _ in range(RECURRENT_TIMED_PREFILLS):
+        st = eng.init_decode_state(RECURRENT_LANES, RECURRENT_SLOTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = eng.prefill(prompts, st)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    with CountOps() as counter:
+        eng.decode_step(logits.argmax(-1), st)
+    out.update(p50_prefill_ms=statistics.median(pre),
+               prefill_tokens=list(prompts.shape),
+               aten_ops_per_decode_step=counter.n)
+    del st, logits
+    # prefill + decode against forward; state continuity
+    ctoks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, LM_CHECK_TOKENS).astype(np.int32)
+    v = cfg.vocab_size        # the pad ids' -1e30 would hide every gap
+    out["decode_vs_forward"], out["state_continuity"] = {}, {}
+    plans = (("cuda", eng),
+             ("float", runtime.compile_model(cfg, params, backend="float",
+                                             device=dev)),
+             ("float32", runtime.compile_model(cfg.with_(dtype="float32"),
+                                               params, backend="float",
+                                               device=dev)))
+    for plan, e in plans:
+        f = e.forward(ctoks)
+        if tuple(f.shape) != (*LM_CHECK_TOKENS, cfg.padded_vocab) or \
+                not bool(torch.isfinite(f[..., :v]).all()):
+            raise AssertionError(f"{name} {plan}: bad forward logits")
+        last = f[:, -1, :v].float()
+        del f
+        state = e.init_decode_state(*LM_CHECK_TOKENS)
+        full, state = e.prefill(ctoks[:, :-1], state)
+        lanes = None
+        if not hybrid:
+            lanes = {"layers": tree_map(lambda t: t.clone(), state["layers"]),
+                     "index": torch.full((LM_CHECK_TOKENS[0],),
+                                         state["index"], dtype=torch.long,
+                                         device=dev)}
+        dec, _ = e.decode_step(ctoks[:, -1], state)
+        dec = dec[:, :v].float()
+        row = {"rel": float((dec - last).abs().max() / last.abs().max()),
+               **greedy_check(dec, last)}
+        if lanes is not None:
+            dl, _ = e.decode_step(ctoks[:, -1], lanes)
+            row["per_lane_equal"] = bool(torch.equal(dec, dl[:, :v].float()))
+        out["decode_vs_forward"][plan] = row
+        st = e.init_decode_state(*LM_CHECK_TOKENS)
+        _, st = e.prefill(ctoks[:, :RECURRENT_SPLIT], st)
+        split, st = e.prefill(ctoks[:, RECURRENT_SPLIT:-1], st)
+        full, split = full[:, :v].float(), split[:, :v].float()
+        out["state_continuity"][plan] = {
+            "split": [RECURRENT_SPLIT, LM_CHECK_TOKENS[1] - 1 - RECURRENT_SPLIT],
+            "rel": float((split - full).abs().max() / full.abs().max()),
+            **greedy_check(split, full)}
+        del state, st, dec, full, split, lanes, e
+    del plans
+    dvf, cont = out["decode_vs_forward"], out["state_continuity"]
+    # (what, plan, limit, greedy tokens equal or near ties only)
+    for what, got, plan, lim, exact in (
+            ("prefill + decode_step against forward", dvf, "cuda",
+             RECURRENT_DECODE_REL[name], False),
+            ("prefill + decode_step against forward", dvf, "float32",
+             LM_REF_DECODE_REL, True),
+            ("a split prefill against one", cont, "cuda",
+             RECURRENT_CONTINUITY_REL, False),
+            ("a split prefill against one", cont, "float32",
+             LM_REF_DECODE_REL, True)):
+        r = got[plan]
+        if r["rel"] >= lim or not r["argmax_equal" if exact else "greedy_ok"]:
+            failures.append(f"{plan}: {what}: {r}, over {lim} or another "
+                            "greedy token")
+    if not all(r.get("per_lane_equal", True) for r in dvf.values()):
+        failures.append(f"a per-lane decode step differs from the scalar "
+                        f"one: {dvf}")
+    # cuda against lut (recorded)
+    fwd = eng.forward(ctoks)[..., :v]
+    del eng
+    lut = runtime.compile_model(cfg, params, backend="lut", device=dev)
+    del params
+    lut_logits = lut.forward(ctoks)[..., :v]
+    del lut
+    out["cuda_vs_lut"] = {
+        "max_abs": float((fwd - lut_logits).abs().max()),
+        "argmax_agree": float((fwd.argmax(-1) == lut_logits.argmax(-1))
+                              .float().mean())}
+    del fwd, lut_logits
+    gc.collect()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    checks = _rise(checks)
+    out.update(check_launches=checks, failures=failures,
+               seconds=time.perf_counter() - t_phase)
+    emit(out)
+    if failures:
+        raise AssertionError(f"{name}: " + "; ".join(failures))
+    return path, checks, expected
+
+
 # ---------------------------------------------------------------------------
 # the contract line
 # ---------------------------------------------------------------------------
@@ -2769,21 +3182,36 @@ def kernels_line(rows: dict, launches: dict, expected: dict,
                    if r.get("model") == LM_NAME and "ms" in r],
             "moe": [{k: r[k] for k in LM_ROW_KEYS if k in r}
                     for r in rows[name]
-                    if r.get("model") == MOE_NAME and "ms" in r]})
+                    if r.get("model") == MOE_NAME and "ms" in r],
+            # the recurrent LMs' heads and hymba's masked softmax rows
+            "rwkv": [{k: r[k] for k in LM_ROW_KEYS if k in r}
+                     for r in rows[name]
+                     if r.get("model") == RWKV_NAME and "ms" in r],
+            "hybrid": [{k: r[k] for k in LM_ROW_KEYS if k in r}
+                       for r in rows[name]
+                       if r.get("model") == HYMBA_NAME and "ms" in r]})
     return {"kernels": entries}
 
 
 def main() -> None:
+    t_start = time.perf_counter()
+    seconds = {}
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
+    seconds["build"] = time.perf_counter() - t_start
+    t0 = time.perf_counter()
     tiny, kwt1 = registry.get("kwt-tiny").config, registry.get("kwt-1").config
     rows = phase_kernels(dev, (tiny, kwt1))
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_perf(dev, info)
+    seconds["perf"] = time.perf_counter() - t0
 
     # The main paths.  Every count goes to 0 just before each and is read
     # just after it: launches made above to compare kernels do not count.
     launches, expected = {}, {}
+    t0 = time.perf_counter()
     ops.reset_launch_counts()
     serve = [phase_serve("kwt-tiny", dev, (1, 8, 64, 4096),
                          [("int8 (Table V)", None, "xla"),
@@ -2795,6 +3223,8 @@ def main() -> None:
                           ("int8 (Table V defaults)", None, "flash_lut")])]
     launches["serve"] = ops.launch_counts()
     expected["serve"] = {n: sum(e[n] for e in serve) for n in serve[0]}
+    seconds["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ops.reset_launch_counts()
     runs = [phase_stream("kwt-tiny", dev, lanes=64, hops=64, reset_at=30),
             phase_stream("kwt-1", dev, lanes=64, hops=216, reset_at=104)]
@@ -2808,6 +3238,8 @@ def main() -> None:
     if launches["stream"] != steps_rose:
         raise AssertionError(f"stream launches {launches['stream']} are not "
                              f"those of its steps, {steps_rose}")
+    seconds["stream"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     # the cell path: the lanes' hops (the launcher's, and the KWT-1 cell's
     # three lane sets and its profiled joint and pipelined hops), less the launches of the KWT-1 phase's checks
     # (hot-swap's warm and probe forwards, the refused artifact's, the taps
@@ -2824,6 +3256,8 @@ def main() -> None:
     if launches["cell"] != lanes_rose:
         raise AssertionError(f"cell launches {launches['cell']} are not those "
                              f"of its hops, {lanes_rose}")
+    seconds["cell"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     # the train path: the launcher's runs, less the launches of the checks
     # each train phase makes after them
     ops.reset_launch_counts()
@@ -2838,6 +3272,8 @@ def main() -> None:
     if launches["train"] != runs_rose:
         raise AssertionError(f"train launches {launches['train']} are not "
                              f"those of its runs, {runs_rose}")
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # the LM path: the LM server's run (internlm2-1.8b at full width) and
     # one flash_lut forward, less the launches of the checks the phase makes
@@ -2853,7 +3289,11 @@ def main() -> None:
     if launches["lm"] != lm_rose:
         raise AssertionError(f"lm launches {launches['lm']} are not those of "
                              f"its served run and flash forward, {lm_rose}")
+    seconds["lm_internlm2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_lm_smoke(dev)
+    seconds["lm_dense_smoke"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     # the moe path: the moe server's run (granite-moe-3b-a800m at full
     # width), less the launches of the checks the phase makes after it
     ops.reset_launch_counts()
@@ -2866,6 +3306,25 @@ def main() -> None:
     if launches["moe"] != moe_rose:
         raise AssertionError(f"moe launches {launches['moe']} are not those "
                              f"of its served run, {moe_rose}")
+    seconds["lm_granite_moe"] = time.perf_counter() - t0
+    # the recurrent paths: each LM's drain batch, less the launches of the
+    # checks its phase makes after it
+    for path, name in (("rwkv", RWKV_NAME), ("hybrid", HYMBA_NAME)):
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        rose, rchecks, rexp = phase_lm_recurrent(dev, name)
+        counted = ops.launch_counts()
+        launches[path] = {n: counted[n] - rchecks[n] for n in counted}
+        expected[path] = rexp
+        if launches[path] != rose:
+            raise AssertionError(f"{path} launches {launches[path]} are not "
+                                 f"those of its drain batch, {rose}")
+        seconds[f"lm_{'rwkv6' if path == 'rwkv' else 'hymba'}"] = \
+            time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "seconds", "seconds": seconds,
+          "total": time.perf_counter() - t_start})
 
     emit(kernels_line(rows, launches, expected, "kwt-1", 64))
     print(info["nvidia_smi"], flush=True)

@@ -33,11 +33,12 @@ The dispatchers also emit the quantisation-health taps
 (``telemetry.taps``): one module-global check, nothing else, unless an
 Engine's taps pass is collecting.
 
-The dense LMs' activations are here too: the bounded-domain sigmoid LUT
-behind ``silu`` and the squared ReLU.  As in the reference, SiLU has no
-kernel: its ``cuda`` mode is the LUT below.  Not ported yet: softplus
-(the hybrid family) and the bf16 exact-softmax branch, which no plan
-reaches while ``scores_dtype`` is float32 (ROADMAP queue A item 3).
+The LMs' activations are here too: the bounded-domain sigmoid LUT behind
+``silu`` and ``softplus`` (the hybrid family's), and the squared ReLU.  As
+in the reference, neither SiLU nor softplus has a kernel: their ``cuda``
+mode is the LUT below.  Not ported yet: the bf16 exact-softmax branch,
+which no plan reaches while ``scores_dtype`` is float32 (ROADMAP queue A
+item 3).
 """
 
 from __future__ import annotations
@@ -390,6 +391,16 @@ def silu(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
     if mode == "exact":
         return silu_exact(x)
     return ste(lambda v: v.to(torch.float32) * sigmoid_lut(v), silu_exact)(x)
+
+
+def softplus(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
+    """Exact: ``F.softplus`` in float32.  Every other mode (``cuda``
+    included): ``x`` above 8, else ``-log(sigmoid_lut(-x))`` floored at
+    1e-12 inside the log, so below -8 it is exactly 0."""
+    if mode == "exact":
+        return torch.nn.functional.softplus(x.to(torch.float32))
+    return torch.where(x > _SIG_RANGE, x.to(torch.float32),
+                       -torch.log(sigmoid_lut(-x).clamp(min=1e-12)))
 
 
 def sqrelu(x: torch.Tensor) -> torch.Tensor:

@@ -43,8 +43,8 @@ def microbatches(cfg: ModelConfig, shape: ShapeSpec) -> int:
 
 def model_module(cfg: ModelConfig):
     """The model module of ``cfg``'s family (``models.kwt``, or
-    ``models.transformer`` for the dense and moe LMs); the other LM
-    families raise and name their ROADMAP item."""
+    ``models.transformer`` for the dense, moe, rwkv and hybrid LMs); the
+    encdec family raises and names its ROADMAP item."""
     return _model_module(cfg)
 
 

@@ -1,5 +1,5 @@
 """Shared transformer layers: norms, RoPE, GQA attention with a KV cache,
-(gated) MLP — for KWT and the dense decoder-only LMs.
+(gated) MLP — for KWT and the decoder-only LMs.
 
 Functional style: ``*_params(cfg, generator)`` builds a dict of weights,
 ``apply_*`` runs the math on ``[B, T, d]`` tensors.  The paper's technique
@@ -17,11 +17,16 @@ as the reference does.  The cache is updated in place (the reference
 returns new caches): the layer writes this call's keys and values into
 the caller's tensors and returns the same tensors.
 
+A sliding window (``cfg.sliding_window``, the hybrid family) bands the
+causal mask (``kpos > qpos - W``) and, in query chunks, slices each
+chunk's keys to its band; a ring cache (hybrid decode) passes
+``causal=False`` and an explicit validity bound instead, the window being
+kept by overwrite.
+
 ``apply_attention`` and ``apply_mlp`` emit the quantisation-health taps
 of their inputs (``telemetry.taps``; a no-op without a collector).
 
-Not ported yet (ROADMAP queue A item 3): the int8 KV cache and sliding
-windows; both raise.
+Not ported yet (ROADMAP queue A item 3): the int8 KV cache; it raises.
 """
 
 from __future__ import annotations
@@ -69,6 +74,15 @@ def linear(x, w, eq: str, cfg=None):
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     return torch.einsum(eq, x, w)
+
+
+def keep_dtype(y, x):
+    """A recurrent block's output in the dtype of the block's input
+    (ROADMAP C9).  Under an integer plan's float32 block view a bf16
+    model's projections come out float32 and would widen the residual
+    stream (the reference raises there); wherever the reference runs this
+    is a no-op."""
+    return y.to(x.dtype)
 
 
 def embed_rows(embed, tokens):
@@ -224,6 +238,10 @@ def _sdpa_block(q, k, v, cfg, *, q0, k0, q_offset, kv_len_valid, causal):
             else:
                 qpos = qpos + int(q_offset)                   # [sq]
             mask = qpos[..., :, None] >= kpos
+            if cfg.sliding_window:
+                # ring caches (causal=False) keep the window by overwrite;
+                # the band applies to contiguous layouts only
+                mask = mask & (kpos > qpos[..., :, None] - cfg.sliding_window)
         if kv_len_valid is not None:
             if _per_lane(kv_len_valid):
                 valid = kpos < kv_len_valid.to(dev)[:, None, None]  # [B,1,sk]
@@ -246,9 +264,10 @@ def sdpa(q, k, v, cfg, *, q_offset=0, kv_len_valid=None, causal=True):
     in the reference as well and stay plain einsums; the softmax between
     them is ``approx.masked_softmax`` in the plan's mode (the softmax
     kernel on the ``cuda`` plan).  Sequences longer than ``Q_CHUNK``
-    queries go in chunks of it, each against the keys it can see; that
-    applies only at a start position of 0 (a prefill of a fresh cache, or
-    a cacheless forward).
+    queries go in chunks of it, each against the keys it can see (with a
+    sliding window, only the keys of its band); that applies only at a
+    start position of 0 (a prefill of a fresh cache, or a cacheless
+    forward).
     """
     sq, sk = q.shape[1], k.shape[1]
     if sq <= Q_CHUNK:
@@ -262,8 +281,9 @@ def sdpa(q, k, v, cfg, *, q_offset=0, kv_len_valid=None, causal=True):
         # the key window of this chunk (positions are left-aligned: a query
         # and a key at the same index share a position)
         khi = min(sk, q0 + qc.shape[1]) if causal else sk
+        klo = max(0, q0 - cfg.sliding_window + 1) if cfg.sliding_window else 0
         outs.append(_sdpa_block(
-            qc, k[:, :khi], v[:, :khi], cfg, q0=q0, k0=0, q_offset=0,
+            qc, k[:, klo:khi], v[:, klo:khi], cfg, q0=q0, k0=klo, q_offset=0,
             kv_len_valid=kv_len_valid, causal=causal))
     return torch.cat(outs, dim=1)
 
@@ -284,10 +304,9 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
     """Returns (out, new_cache).  ``cache`` = dict(k=[B,S,KV,D], v=...) or
     None; with a cache, this call's keys and values are written into it
     in place at ``cache_index`` (an int, or a per-lane [B] tensor for a
-    one-token decode) and the same dict is returned."""
-    if cfg.sliding_window:
-        raise NotImplementedError(f"sliding-window attention {_LATER} "
-                                  "(the hybrid family)")
+    one-token decode) and the same dict is returned.  A ring cache (the
+    hybrid family's sliding window) passes ``causal=False`` and an explicit
+    ``kv_len_valid``: every live slot is a valid past key."""
     if cache is not None and _kv_quantized(cfg):
         raise NotImplementedError(f"the int8 KV cache {_LATER}")
     if cfg.attn_impl not in ("xla", "flash_lut"):
@@ -350,8 +369,11 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
             cv.index_put_((lanes, li), v[:, 0].to(cv.dtype))
         else:
             idx = int(idx)
-            ck[:, idx:idx + sq] = k
-            cv[:, idx:idx + sq] = v
+            # a start that would overrun the cache is clamped, as
+            # lax.dynamic_update_slice clamps it in the reference
+            at = max(0, min(idx, ck.shape[1] - sq))
+            ck[:, at:at + sq] = k
+            cv[:, at:at + sq] = v
         valid = (idx + sq) if kv_len_valid is None else kv_len_valid
         # a write of more than Q_CHUNK tokens is the prefill of a fresh
         # cache (index 0): a start of 0 lets sdpa chunk the queries

@@ -1,23 +1,33 @@
-"""Decoder-only LM assembly for the KV-cache families: dense (granite-8b,
-internlm2, qwen2.5, nemotron, chameleon) and moe (granite-moe,
-deepseek-moe) — embedding, the layer stack, the LM head and the prefill /
-decode state machine.  Block math lives in ``layers.py`` and ``moe.py``;
-a moe block is a dense one with ``moe.apply_moe`` (block key ``"moe"``)
-in place of the MLP.
+"""Decoder-only LM assembly for every decoder-only family: dense
+(granite-8b, internlm2, qwen2.5, nemotron, chameleon), moe (granite-moe,
+deepseek-moe), rwkv (rwkv6-3b) and hybrid (hymba) — embedding, the layer
+stack, the LM head and the prefill / decode state machine.  Block math
+lives in ``layers.py``, ``moe.py``, ``rwkv.py`` and ``ssm.py``; a moe
+block is a dense one with ``moe.apply_moe`` (block key ``"moe"``) in
+place of the MLP.
 
 The reference scans its stacked layers (``lax.scan``); here the stack is
 a Python loop over the same stacked leaves (``blocks``: every leaf
 ``[n_layers, ...]``), each layer a view ``leaf[i]``.
 
-Decode state: ``{"layers": {"k": [L,B,S,KV,Dh], "v": ...}, "index": i}``
-with ``index`` an int (every lane at one depth) or a per-lane ``[B]``
-tensor (the ``cell.scheduler`` continuous-batching path).  ``prefill``
-and ``decode_step`` write the new keys and values into the state's
-caches in place and return the state with its index advanced; the
-reference returns new caches instead.  ``merge_decode_state`` builds new
-tensors, so a caller that merges never aliases the states it merges.
+Decode state: ``{"layers": ..., "index": i}``, every ``layers`` leaf
+stacked ``[n_layers, B, ...]``:
 
-The rwkv and hybrid families wait for ROADMAP queue A item 3 and raise.
+  dense/moe : KV caches ``{"k": [L,B,S,KV,Dh], "v": ...}``
+  rwkv      : recurrences ``{"tmix": {"S": [L,B,H,Dk,Dv], "x_prev":
+              [L,B,1,D]}, "cmix": {"x_prev": ...}}``
+  hybrid    : ``{"mamba": {"h": [L,B,D,N], "conv": [L,B,K-1,D]}, "kv":``
+              a ring KV cache of ``min(max_len, W)`` slots ``}``
+
+``index`` is an int (every lane at one depth) or, for dense, moe and
+rwkv, a per-lane ``[B]`` tensor (the ``cell.scheduler`` continuous-
+batching path).  ``prefill`` and ``decode_step`` write the new keys,
+values and recurrent states into the state's tensors in place and return
+the state with its index advanced; the reference returns new ones
+instead.  ``merge_decode_state`` builds new tensors, so a caller that
+merges never aliases the states it merges.
+
+The encdec family (whisper) waits for ROADMAP queue A item 3 and raises.
 """
 
 from __future__ import annotations
@@ -29,12 +39,16 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as S
 
 KV_FAMILIES = ("dense", "moe")
+RECURRENT_FAMILIES = ("rwkv", "hybrid")
+FAMILIES = KV_FAMILIES + RECURRENT_FAMILIES
 
 
-def _kv_family(cfg):
-    if cfg.family not in KV_FAMILIES:
+def _lm_family(cfg):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family={cfg.family!r} is not ported yet: it waits for ROADMAP "
             f"queue A item 3 ({cfg.family})")
@@ -45,7 +59,11 @@ def _kv_family(cfg):
 # ---------------------------------------------------------------------------
 
 def block_params(cfg, generator, device="cpu"):
-    _kv_family(cfg)
+    _lm_family(cfg)
+    if cfg.family == "rwkv":
+        return R.block_params(cfg, generator, device)
+    if cfg.family == "hybrid":
+        return S.block_params(cfg, generator, device)
     p = {"ln1": L.norm_params(cfg, device=device),
          "ln2": L.norm_params(cfg, device=device),
          "attn": L.attention_params(cfg, generator, device)}
@@ -63,7 +81,7 @@ def init_params(cfg, generator: torch.Generator, device=None):
     ``generator`` on its own device (a CUDA generator draws full-width
     weights on the card); the numbers differ from ``jax.random``'s, so
     parity tests carry weights across as numpy instead."""
-    _kv_family(cfg)
+    _lm_family(cfg)
     device = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     embed = L.he(generator, (cfg.padded_vocab, cfg.d_model), 1.0, dt, device)
@@ -83,9 +101,16 @@ def init_params(cfg, generator: torch.Generator, device=None):
 # ---------------------------------------------------------------------------
 
 def apply_block(bp, x, cfg, state, *, positions, cache_index=None,
-                kv_len_valid=None):
-    """One pre-norm (or post-norm) dense or moe block; ``state`` is the
-    layer's KV cache or None."""
+                kv_len_valid=None, ring=False):
+    """Dispatch one block.  ``state`` is the layer's decode state: a KV
+    cache or None (dense, moe), a recurrence (rwkv, hybrid: always
+    given).  Returns ``(x, new_state)``."""
+    if cfg.family == "rwkv":
+        return R.apply_block(bp, x, cfg, state)
+    if cfg.family == "hybrid":
+        return S.apply_block(bp, x, cfg, state, positions=positions,
+                             cache_index=cache_index,
+                             kv_len_valid=kv_len_valid, ring=ring)
     if cfg.post_norm:
         a, nc = L.apply_attention(bp["attn"], x, cfg, positions=positions,
                                   cache=state, cache_index=cache_index,
@@ -114,15 +139,48 @@ def _layer(leaf, i: int):
     return leaf[i]
 
 
+def _fresh_state(cfg, batch, device):
+    """Zero per-layer recurrence for a stateless pass (rwkv, hybrid)."""
+    if cfg.family == "rwkv":
+        return R.init_layer_state(cfg, batch, device)
+    if cfg.family == "hybrid":
+        return {"mamba": S.init_mamba_state(cfg, batch, device)}
+    return None
+
+
+def _write_state(dst, src):
+    """Copy a layer's new recurrent state into its slices of the stacked
+    state; a tensor the layer wrote in place (the ring KV cache) is
+    skipped.  No cast: each new tensor has its slot's dtype."""
+    for key, new in src.items():
+        old = dst[key]
+        if isinstance(new, dict):
+            _write_state(old, new)
+        elif new is not old:
+            if new.dtype != old.dtype:
+                raise TypeError(f"decode state {key!r}: {new.dtype} into "
+                                f"{old.dtype}")
+            old.copy_(new)
+
+
 def _scan_blocks(params, x, cfg, *, positions, states=None, cache_index=None,
-                 kv_len_valid=None):
+                 kv_len_valid=None, ring=False):
     """The reference's ``lax.scan`` over the stacked blocks, as a loop.
-    Returns ``(x, states)``: the stacked caches, written in place."""
+    Returns ``(x, states)``: the stacked caches and recurrences, written in
+    place (layer i's new recurrence into ``states[...][i]``).  Without
+    ``states`` a recurrent family starts every layer from zeros."""
+    recurrent = cfg.family in RECURRENT_FAMILIES
+    fresh = _fresh_state(cfg, x.shape[0], x.device) \
+        if states is None and recurrent else None
     for i in range(cfg.n_layers):
         bp = tree_map(lambda a, i=i: _layer(a, i), params["blocks"])
-        st = None if states is None else tree_map(lambda a, i=i: a[i], states)
-        x, _ = apply_block(bp, x, cfg, st, positions=positions,
-                           cache_index=cache_index, kv_len_valid=kv_len_valid)
+        st = fresh if states is None else \
+            tree_map(lambda a, i=i: a[i], states)
+        x, new = apply_block(bp, x, cfg, st, positions=positions,
+                             cache_index=cache_index,
+                             kv_len_valid=kv_len_valid, ring=ring)
+        if states is not None and recurrent:
+            _write_state(st, new)
     return x, states
 
 
@@ -149,8 +207,9 @@ def _embed(params, tokens, cfg):
 
 
 def forward(params, tokens, cfg, *, positions=None):
-    """tokens [B,S] -> logits [B,S,V] (teacher-forced, no cache)."""
-    _kv_family(cfg)
+    """tokens [B,S] -> logits [B,S,V] (teacher-forced, no cache; a
+    recurrent family starts from a zero state)."""
+    _lm_family(cfg)
     s = tokens.shape[1]
     x = _embed(params, tokens, cfg)
     if positions is None:
@@ -170,20 +229,37 @@ def kv_dtype(params, cfg) -> torch.dtype:
     integer plans' partial residency, ``runtime.compile_model``).  The
     decode state caches in it, so that a decode step attends over the
     values ``forward`` does: a bf16 cache would round the float32 keys and
-    values that ``forward`` takes as they are."""
-    wk = params["blocks"]["attn"]["wk"]
+    values that ``forward`` takes as they are.  Hybrid keeps its conv tail
+    in it too.  A family with no attention (rwkv) has no keys and values:
+    the model dtype, which its token-shift tails are kept in."""
+    attn = params["blocks"].get("attn")
+    if attn is None:
+        return getattr(torch, cfg.dtype)
+    wk = attn["wk"]
     wdt = torch.float32 if isinstance(wk, quant.QTensor) else wk.dtype
     return torch.promote_types(getattr(torch, cfg.dtype), wdt)
 
 
 def init_decode_state(cfg, batch, max_len, device=None, dtype=None):
-    """Zero caches of ``max_len`` slots, in ``dtype`` (default: the model
-    dtype; ``kv_dtype`` gives the one a plan computes in)."""
-    _kv_family(cfg)
+    """Zero decode state at index 0: KV caches of ``max_len`` slots in
+    ``dtype`` (default: the model dtype; ``kv_dtype`` gives the one a plan
+    computes in); rwkv's recurrences (S float32, the token-shift tails in
+    the model dtype); hybrid's mamba state (h float32, the conv tail in
+    ``dtype``) beside a ring KV cache of ``min(max_len, sliding_window)``
+    slots in ``dtype``."""
+    _lm_family(cfg)
     device = resolve_device(device)
-    per = L.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
-    layers = {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
-              for k, v in per.items()}
+    if cfg.family == "rwkv":
+        per = R.init_layer_state(cfg, batch, device)
+    elif cfg.family == "hybrid":
+        per = {"mamba": S.init_mamba_state(cfg, batch, device, dtype),
+               "kv": L.init_kv_cache(cfg, batch,
+                                     min(max_len, cfg.sliding_window),
+                                     dtype=dtype, device=device)}
+    else:
+        per = L.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
+    layers = tree_map(
+        lambda v: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim), per)
     return {"layers": layers, "index": 0}
 
 
@@ -197,30 +273,62 @@ def _index(idx):
 def prefill(params, tokens, cfg, state):
     """Prompt pass filling the decode state; returns (last_logits, state).
 
-    Writes the whole prompt into the KV caches at the state's index.  With
-    a per-lane index the pass is one token (``decode_step``): lanes
-    joining mid-flight prefill a fresh state and merge it
-    (``cell.scheduler``)."""
-    _kv_family(cfg)
+    dense/moe: writes the whole prompt into the KV caches at the state's
+    index.  With a per-lane index the pass is one token (``decode_step``):
+    lanes joining mid-flight prefill a fresh state and merge it
+    (``cell.scheduler``).
+    rwkv: runs the recurrence from the state's; the final state is the
+    cache (any index, per-lane included).
+    hybrid: a prompt longer than the window runs banded attention and
+    threads the mamba state, and leaves the ring cache as it is (the
+    reference's own behaviour, ROADMAP C10); ``1 < s <= W`` is a causal
+    chunk written at ``index mod W``; ``s == 1`` a ring decode step.  A
+    per-lane index raises, as in the reference."""
+    _lm_family(cfg)
     s = tokens.shape[1]
     x = _embed(params, tokens, cfg)
     idx = _index(state["index"])
     steps = torch.arange(s, device=x.device)
-    if isinstance(idx, torch.Tensor):           # per-lane [B]
-        if s != 1:
-            raise ValueError(
-                "a per-lane decode state advances one token at a time; "
-                "joins prefill a fresh state and merge (cell.scheduler)")
-        idx = idx.to(x.device)
-        positions = idx[:, None] + steps
+    if cfg.family in RECURRENT_FAMILIES:
+        x, layers = _recurrent_prefill(params, x, cfg, state, idx, steps)
     else:
-        positions = idx + steps
-    x, layers = _scan_blocks(params, x, cfg, positions=positions,
-                             states=state["layers"], cache_index=idx,
-                             kv_len_valid=idx + s)
+        if isinstance(idx, torch.Tensor):           # per-lane [B]
+            if s != 1:
+                raise ValueError(
+                    "a per-lane decode state advances one token at a time; "
+                    "joins prefill a fresh state and merge (cell.scheduler)")
+            idx = idx.to(x.device)
+            positions = idx[:, None] + steps
+        else:
+            positions = idx + steps
+        x, layers = _scan_blocks(params, x, cfg, positions=positions,
+                                 states=state["layers"], cache_index=idx,
+                                 kv_len_valid=idx + s)
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = _head(params, x[:, -1], cfg)
     return logits, {"layers": layers, "index": idx + s}
+
+
+def _recurrent_prefill(params, x, cfg, state, idx, steps):
+    if cfg.family == "rwkv":
+        return _scan_blocks(params, x, cfg, positions=None,
+                            states=state["layers"])
+    if isinstance(idx, torch.Tensor):
+        raise ValueError("per-lane decode indices cover dense/moe/rwkv; "
+                         "hybrid ring caches keep the shared-cursor path")
+    s, w = x.shape[1], cfg.sliding_window
+    positions = idx + steps
+    if s > w:
+        # long prompt: banded attention, no cache fill (C10)
+        x, _ = _scan_blocks(params, x, cfg, positions=positions,
+                            states={"mamba": state["layers"]["mamba"]})
+        return x, state["layers"]
+    # s == 1: a ring decode step (slots may be rotated: positional
+    # causality means nothing there, the validity bound alone masks);
+    # s > 1: a prompt chunk in monotone slots, ordinary causal masks
+    return _scan_blocks(params, x, cfg, positions=positions,
+                        states=state["layers"], cache_index=idx % w,
+                        kv_len_valid=min(idx + s, w), ring=s == 1)
 
 
 def decode_step(params, token, cfg, state):
@@ -257,7 +365,7 @@ def merge_decode_state(old, new, lane_mask):
 def forward_no_blocks(params, tokens, cfg):
     """Embed -> final norm -> head only (the cost decomposition's
     no-blocks pass)."""
-    _kv_family(cfg)
+    _lm_family(cfg)
     x = _embed(params, tokens, cfg)
     x = L.apply_norm(params["ln_f"], x, cfg)
     return _head(params, x, cfg)

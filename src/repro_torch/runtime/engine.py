@@ -12,10 +12,12 @@ ONCE, places the parameters on the device, and returns an ``Engine``:
     emb    = eng.embed_frames(frames)     # streaming building blocks
     logits = eng.encode_window(window)
 
-LM engines (the dense and moe families) expose ``init_decode_state`` /
-``prefill`` / ``decode_step`` (and ``forward``: tokens -> logits)
-instead, which ``cell.scheduler`` and ``launch/serve.py`` run off; each
-kind's entry points raise on the other's engine.
+LM engines (the dense, moe, rwkv and hybrid families) expose
+``init_decode_state`` / ``prefill`` / ``decode_step`` (and ``forward``:
+tokens -> logits) instead, which ``cell.scheduler`` and
+``launch/serve.py`` run off (dense and moe; the recurrent families are
+served as one drain batch through these entry points, as in the
+reference); each kind's entry points raise on the other's engine.
 
 Execution is eager under ``torch.inference_mode()``: there is no jit to
 plan, so the reference's jitted programs, its flat-leaf dispatch and its
@@ -68,7 +70,7 @@ def _model_module(cfg):
         from repro_torch.models import kwt
         return kwt
     from repro_torch.models import transformer
-    if cfg.family in transformer.KV_FAMILIES:
+    if cfg.family in transformer.FAMILIES:
         return transformer
     raise NotImplementedError(
         f"family={cfg.family!r} is not ported yet: it waits for ROADMAP "
@@ -224,11 +226,13 @@ class Engine:
     # -- LM serving entry points ------------------------------------------
 
     def init_decode_state(self, batch: int, max_len: int):
-        """Zero KV caches for ``batch`` lanes of ``max_len`` tokens on the
-        engine's device, index 0 (ordinary tensors: the caller may edit
-        them; ``prefill`` / ``decode_step`` write them in place), in the
-        dtype the plan computes keys and values in (``kv_dtype``: float32
-        on the integer plans, whose blocks are a float32 view)."""
+        """Zero decode state for ``batch`` lanes of ``max_len`` tokens on
+        the engine's device, index 0 (ordinary tensors: the caller may
+        edit them; ``prefill`` / ``decode_step`` write them in place): KV
+        caches (for hybrid a ring of ``min(max_len, sliding_window)``
+        slots) in the dtype the plan computes keys and values in
+        (``kv_dtype``: float32 on the integer plans, whose blocks are a
+        float32 view), and the recurrences of rwkv and hybrid."""
         self._require_lm("init_decode_state")
         return self._mod.init_decode_state(
             self.exec_cfg, batch, max_len, device=self.device,
@@ -488,7 +492,7 @@ def compile_model(cfg, params, backend="float",
     second pass; the logits are the untapped pass's, equal to a
     ``taps=False`` plan's.
 
-    The LM families (dense, moe) get PARTIAL residency under an
+    The LM families (dense, moe, rwkv, hybrid) get PARTIAL residency under an
     integer-executing backend (``lut`` / ``cuda``): embedding and head stay
     packed, the blocks are dequantised, and the plan is pinned
     integer-executing (``_lm_partial_resident``); ``integer_resident``

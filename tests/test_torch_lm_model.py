@@ -1,6 +1,7 @@
 """The dense decoder-only LMs in the port against the reference: configs
-and registry, parameter layout (the moe configs' too; their logits are
-tests/test_torch_moe.py's), and for the five dense smoke configs the
+and registry, parameter layout (the moe, rwkv and hybrid configs' too;
+their logits are tests/test_torch_moe.py's, test_torch_rwkv.py's and
+test_torch_hybrid.py's), and for the five dense smoke configs the
 logits of ``forward``, ``prefill`` and ``decode_step`` under the port's
 ``float``, ``lut`` and ``cuda`` plans against the reference's ``float``,
 ``lut`` and ``pallas`` plans (the ``cuda`` plan through its kernels'
@@ -49,6 +50,8 @@ torch.set_num_threads(1)
 DENSE = ["internlm2-1.8b", "granite-8b", "qwen2.5-14b", "chameleon-34b",
          "nemotron-4-340b"]
 MOE = ["granite-moe-3b-a800m", "deepseek-moe-16b"]   # tests/test_torch_moe.py
+# tests/test_torch_rwkv.py and tests/test_torch_hybrid.py
+RECURRENT = ["rwkv6-3b", "hymba-1.5b"]
 PLANS = {"float": "float", "lut": "lut", "cuda": "pallas"}
 FLOAT_ATOL = 1e-4
 DECODE_REL = 1e-4
@@ -115,8 +118,7 @@ def test_registry_resolves_every_reference_name():
     assert sorted(tregistry.DENSE) == sorted(DENSE)
 
 
-@pytest.mark.parametrize("name", ["rwkv6-3b", "hymba-1.5b",
-                                  "whisper-large-v3"])
+@pytest.mark.parametrize("name", ["whisper-large-v3"])
 def test_other_lm_families_raise_and_name_their_item(name):
     cfg = tregistry.get(name).smoke
     with pytest.raises(NotImplementedError, match=f"item 3 \\({cfg.family}\\)"):
@@ -125,7 +127,7 @@ def test_other_lm_families_raise_and_name_their_item(name):
         TT.init_params(cfg, torch.Generator(), "cpu")
 
 
-@pytest.mark.parametrize("name", DENSE + MOE)
+@pytest.mark.parametrize("name", DENSE + MOE + RECURRENT)
 def test_init_params_layout_matches_reference(name):
     jcfg, tcfg = jregistry.get(name).smoke, tregistry.get(name).smoke
     shapes = jax.eval_shape(lambda k: JT.init_params(jcfg, k),

@@ -240,19 +240,14 @@ def test_init_params_layout_matches_reference_and_device_rule():
 def test_later_slices_raise_not_implemented():
     """RMSNorm, gated MLPs, RoPE and the float KV cache came with the dense
     LM slice (tests/test_torch_lm_layers.py), the moe family with its own
-    (tests/test_torch_moe.py); what stays later: the sliding window
-    (hybrid), the int8 KV cache and the rwkv family."""
+    (tests/test_torch_moe.py), the sliding window and the rwkv family with
+    theirs (tests/test_torch_hybrid.py, tests/test_torch_rwkv.py); what
+    stays later: the int8 KV cache."""
     from repro_torch.configs.base import QuantConfig
-    from repro_torch.models import transformer as tT
     tcfg = tregistry.get("kwt-tiny").config
     x = torch.zeros(1, 27, 12)
     kvq = tcfg.with_(quant=QuantConfig(quantize_kv_cache=True))
     with pytest.raises(NotImplementedError):
-        tL.apply_attention({}, x, tcfg.with_(sliding_window=8))
-    with pytest.raises(NotImplementedError):
         tL.init_kv_cache(kvq, 1, 4)
     with pytest.raises(NotImplementedError):
         tL.apply_attention({}, x, kvq, cache={})
-    with pytest.raises(NotImplementedError):
-        tT.init_params(tregistry.get("rwkv6-3b").smoke,
-                       torch.Generator(), "cpu")

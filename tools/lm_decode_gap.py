@@ -4,11 +4,13 @@
     python tools/lm_decode_gap.py [--arch internlm2-1.8b] [--smoke]
         [--device cpu] [--cpu-twin] [--out FILE]
 
-The check of ``chip_smoke.py``'s phases ``lm_internlm2`` and
-``lm_granite_moe`` (a prefill of S - 1 tokens into caches of S slots and
-one ``decode_step``, against the last logits of ``forward``; tokens
-[2, 64] from numpy seed 7, weights from seed 0 drawn on the device; a moe
-config at the drop-free capacity factor 8.0, as the phase and the
+The check of ``chip_smoke.py``'s phases ``lm_internlm2``,
+``lm_granite_moe``, ``lm_rwkv6`` and ``lm_hymba`` (a prefill of S - 1
+tokens into a decode state of S slots and one ``decode_step``, against the
+last logits of ``forward``; tokens [2, 64] from numpy seed 7 — for a
+hybrid config no longer than its window, so that the prefill fills the
+ring cache (ROADMAP C10) —, weights from seed 0 drawn on the device; a
+moe config at the drop-free capacity factor 8.0, as the phase and the
 reference's own test take it), taken apart, plan by plan:
 
 - ``layers``: for each block, the last position's output, decode against
@@ -23,15 +25,17 @@ reference's own test take it), taken apart, plan by plan:
   quantiser adds;
 - ``per_lane_equal``: the decode with a per-lane ``[B]`` index (the
   scheduler's path: scatter write, per-lane masks) against the scalar one,
-  ``torch.equal``;
+  ``torch.equal`` (``null`` for hybrid, whose ring caches take a shared
+  index only, as in the reference);
 - moe only, ``expert_set_agree`` / ``slot_order_agree``: over (layer,
   lane), the share of the last position's routes whose set of experts,
   and whose slot order, the decode step and the forward agree on, and
   ``first_route_flip``: the first layer whose expert sets differ.
 
 Plans: ``cuda``, and with float32 activations; ``lut`` and its variants with a LUT switched off
-(``softmax=exact``, ``silu=exact``, both), each with bfloat16 and with
-float32 activations (``[dtype]``); ``float``.
+(``softmax=exact``, ``silu=exact`` — every activation LUT: SiLU, softplus,
+rwkv's sigmoid —, both), each with bfloat16 and with float32 activations
+(``[dtype]``); ``float``.
 ``--cpu-twin`` adds the ``cuda`` plan on the host CPU through its kernels'
 plain versions, from the same weights, and the card against the host for
 forward and for prefill + decode.  One JSON object a plan on standard
@@ -141,12 +145,17 @@ def gap(eng, toks) -> dict:
         fwd = eng.forward(toks)[:, -1]
     state = eng.init_decode_state(b, s)
     _, state = eng.prefill(toks[:, :-1], state)
-    lanes = _clone(state)
-    lanes["index"] = torch.full((b,), state["index"], dtype=torch.long,
-                                device=eng.device)
+    lanes = None
+    if cfg.family != "hybrid":
+        lanes = _clone(state)
+        lanes["index"] = torch.full((b,), state["index"], dtype=torch.long,
+                                    device=eng.device)
     with Recorder() as dec_rec:
         dec, _ = eng.decode_step(toks[:, -1], state)
-    dec_lanes, _ = eng.decode_step(toks[:, -1], lanes)
+    per_lane = None
+    if lanes is not None:
+        per_lane = bool(torch.equal(dec, eng.decode_step(toks[:, -1],
+                                                         lanes)[0]))
     layers = [_rel(d, f) for d, f in zip(dec_rec.blocks, fwd_rec.blocks)]
     w = _head_weight(eng)
     hf, hd = fwd_rec.head_in, dec_rec.head_in
@@ -161,7 +170,7 @@ def gap(eng, toks) -> dict:
             "float_head_rel": float(float_head / last.abs().max()),
             "head_in": _rel(hd, hf), "codes_differ": codes,
             "head_in_numel": hd.numel(),
-            "per_lane_equal": bool(torch.equal(dec, dec_lanes)),
+            "per_lane_equal": per_lane,
             **_routes(fwd_rec.routes, dec_rec.routes),
             "layers": layers,
             "first_layer_over_1e-3": next(
@@ -185,6 +194,14 @@ def variants(cuda_eng, lut_eng, float_eng):
             yield name + tag, dataclasses.replace(
                 lut_eng, exec_cfg=lut_eng.exec_cfg.with_(dtype=dt, **kw))
     yield "float", float_eng
+
+
+def tokens_shape(cfg) -> tuple:
+    """``TOKENS``, cut to a hybrid config's window (its smoke window is
+    8): a longer prefill leaves the ring cache empty (C10)."""
+    if cfg.family == "hybrid":
+        return TOKENS[0], min(TOKENS[1], cfg.sliding_window)
+    return TOKENS
 
 
 def main(argv=None) -> int:
@@ -211,8 +228,9 @@ def main(argv=None) -> int:
 
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
+    shape = tokens_shape(cfg)
     toks = np.random.default_rng(7).integers(
-        0, cfg.vocab_size, TOKENS).astype(np.int32)
+        0, cfg.vocab_size, shape).astype(np.int32)
     plain = dev.type == "cpu"
     cuda_eng = runtime.compile_model(cfg, params, backend="cuda", device=dev,
                                      plain_kernels=plain)
@@ -240,7 +258,7 @@ def main(argv=None) -> int:
         host_f = host.forward(toks)[:, -1]
         decs = []
         for eng in (cuda_eng, host):
-            st = eng.init_decode_state(*TOKENS)
+            st = eng.init_decode_state(*shape)
             _, st = eng.prefill(toks[:, :-1], st)
             decs.append(eng.decode_step(toks[:, -1], st)[0])
         row.update(card_vs_host_forward_rel=_rel(card_f, host_f),
