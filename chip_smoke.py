@@ -7,8 +7,10 @@ served offline through ``repro_torch.runtime``, streamed hop by hop, and
 trained with quantisation-aware training, the dense LM (internlm2-1.8b
 at full width) and the moe LM (granite-moe-3b-a800m at full width) served
 with continuous batching, the recurrent LMs (rwkv6-3b and hymba-1.5b at
-full width) served as one drain batch — on the card, and is the quickest
-proof that the port still builds and starts there:
+full width) served as one drain batch, the encoder-decoder
+(whisper-large-v3 at full width) run at module level under the ``cuda``
+plan's ``exec_cfg`` — on the card, and is the quickest proof that the port
+still builds and starts there:
 
 1. ``device``          the card, its power limit, TF32 off.
 2. ``build``           compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc``
@@ -241,16 +243,52 @@ proof that the port still builds and starts there:
                        step equal to the scalar one; ``cuda`` against
                        ``lut`` (recorded); p50 ms per decode step and per
                        prefill, ATen ops per step, peak GB and seconds.
+18. ``lm_whisper``     whisper-large-v3 at full width (32 encoder and 32
+                       decoder layers, d 1280, 20 heads of 64, d_ff 5120,
+                       enc_seq 1500, vocab 51866, bf16; weights drawn on
+                       the card by the port's ``init_params`` from a seed;
+                       the stub frontend's frames from a numpy seed), run
+                       as the reference runs the family (ROADMAP C11): the
+                       module's ``prefill`` and ``decode_step`` with float
+                       params under ``runtime.get_backend("cuda")
+                       .configure(cfg)``, 4 clips, a 4-token prompt, 60
+                       greedy steps, then one ``flash_lut`` forward
+                       (``encode`` + ``decode_train``); the launches equal
+                       per prefill a softmax per encoder query chunk and
+                       two per decoder layer, a GELU per layer, per step
+                       two softmaxes and a GELU per decoder layer, per
+                       flash forward an attention per layer.  Then on the
+                       same weights: the softmax kernel ``torch.equal`` on
+                       real encoder chunks of 1500-key scores and on every
+                       decoder layer's cross-attention rows of a decode
+                       step, the GELU kernel on real encoder MLP inputs,
+                       the attention on the first encoder layer's real q,
+                       k, v at key tiles of 4 (bf16 and float32 copies,
+                       the tight terms in float32); prefill + decode
+                       against ``decode_train`` (``WHISPER_DECODE_REL`` on
+                       ``cuda``, the reference's 1e-3 on ``float`` at
+                       float32); ``flash_lut`` against ``xla``
+                       (``WHISPER_FLASH_*``); ``cuda`` against ``lut``
+                       and their greedy tokens (recorded); p50 ms of
+                       ``encode``, ``prefill`` and ``decode_step``, ATen
+                       ops per step, peak GB.
 
    ``lm_dense_smoke`` (14) also runs the rwkv6-3b smoke config (and its
    fused-projection and padded-head variants) and the hymba-1.5b smoke
    config, and 20 tokens of hymba decoded into its ring of 8 slots on the
-   card against ``forward`` (the ring wraps twice).
+   card against ``forward`` (the ring wraps twice), and the whisper smoke
+   config at module level under the float, lut and cuda plans (decode ==
+   forward within the reference's 1e-3, card against CPU).  The kernel
+   phase (3) also holds and times the whisper shapes: the softmax on an
+   encoder query chunk ``[40960, 1500]`` and cross rows ``[80, 1500]``,
+   the GELU in bf16 at ``[6000, 5120]`` and ``[4, 5120]``, the attention
+   ``(4, 20, 20, 1500, 1500, 64)`` at key tiles of 4 (under ``encdec``).
 
 The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
 the train phases (11, 12), the LM server with its ``flash_lut`` forward
-(13), the moe server (15) and the two recurrent LMs' drain batches (16,
-17) are the main paths: the counters go to 0
+(13), the moe server (15), the two recurrent LMs' drain batches (16,
+17) and the whisper clips with their ``flash_lut`` forward (18) are the
+main paths: the counters go to 0
 just before each group and are read just after it; the launches of the
 stream phases' check forwards, of the cell phase's checks (hot-swap's warm
 and probe forwards, the refused artifact's, the taps plan's) and of the
@@ -291,6 +329,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import io
@@ -322,7 +361,9 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import stream_serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import kwt  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -341,6 +382,7 @@ qat_export = importlib.import_module("repro_torch.qat.export")
 HBM_BYTES_PER_S = roofline.H100_HBM_BW
 INT8_OPS_PER_S = roofline.H100_PEAK_OPS_INT8
 F32_OPS_PER_S = roofline.H100_PEAK_FLOPS_FP32
+BF16_OPS_PER_S = roofline.H100_PEAK_FLOPS_BF16
 SOFTMAX_OPS_PER_ELEM = perf_cost.SOFTMAX_OPS_PER_ELEM   # fixed, float
 GELU_OPS_PER_ELEM = perf_cost.GELU_OPS_PER_ELEM         # nearest, interp
 
@@ -362,6 +404,9 @@ ATTN_LUT_ATOL = 0.05          # LUT mode against the plain version: the
 # at other key-tile edges than the reference's leaves about half of the
 # elements outside 1e-5 (tests/test_torch_attention.py), so these terms
 # hold the kernel to the reference's edges where the keys are several tiles.
+# They hold bfloat16 operands too: whisper's encoder shape at key tiles of 4
+# measured 9.8e-4 / 0.99933 on random and 3.9e-3 / 0.99982 on the model's
+# own q, k, v (PERF.md).
 ATTN_TIGHT_ATOL = 0.01
 ATTN_TIGHT_MIN_SHARE = 0.98   # share of elements within 1e-5
 # cuda + flash_lut logits against lut + flash_lut (kernel vs plain
@@ -706,7 +751,8 @@ def check_matmul_raw(dev, gen, m, k, n, shift, out_int16):
 
 
 def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
-                    timed=False, exact_vs_plain=True, strided=False):
+                    timed=False, exact_vs_plain=True, strided=False,
+                    qkv=None):
     """The wrapper against ``ref.lut_attention_tiled`` at the wrapper's
     key tile and against its plain version ``ref.lut_attention``, on the
     same CUDA tensors.  ``shape`` = (b, hq, hkv, lq, lk, d).  The exact
@@ -714,9 +760,15 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
     plain version lacks: ``exact_vs_plain=False`` where rows spread wider.
     ``strided``: q, k, v are views of ``[B, L, H, D]`` tensors transposed,
     as the layer passes them, and the output must be laid out so that the
-    layer's ``transpose(1, 2).reshape(B, L, H * D)`` is a view."""
+    layer's ``transpose(1, 2).reshape(B, L, H * D)`` is a view.  ``qkv``:
+    a model's own (q, k, v) in place of random ones.  The LUT mode is held
+    to the tight terms against the tiled version and to the reference's
+    0.05 against the plain one, in float32 and bfloat16 alike."""
     b, hq, hkv, lq, lk, d = shape
-    if strided:
+    if qkv is not None:
+        q, k, v = qkv
+        dtype = q.dtype
+    elif strided:
         q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                    .transpose(1, 2)
                    for s in ((b, lq, hq, d), (b, lk, hkv, d), (b, lk, hkv, d)))
@@ -743,18 +795,19 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
     diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
     err = float(diff.max()) if diff.numel() else 0.0
     share = float((diff <= 1e-5).double().mean()) if diff.numel() else 1.0
-    if dtype == torch.float32:
-        if use_lut:
-            ok = err <= ATTN_TIGHT_ATOL and share >= ATTN_TIGHT_MIN_SHARE \
-                and plain_err <= ATTN_LUT_ATOL
-        else:
-            ok = all(bool(torch.allclose(got, w, rtol=ATTN_EXACT_TOL,
-                                         atol=ATTN_EXACT_TOL))
-                     for w in ((want, plain) if exact_vs_plain else (want,)))
-        if not ok:
-            raise AssertionError(f"{what}: max abs err {err}, share within "
-                                 f"1e-5 {share} (tiled version), max abs err "
-                                 f"{plain_err} (plain version)")
+    if use_lut:
+        ok = err <= ATTN_TIGHT_ATOL and share >= ATTN_TIGHT_MIN_SHARE \
+            and plain_err <= ATTN_LUT_ATOL
+    elif dtype == torch.float32:
+        ok = all(bool(torch.allclose(got, w, rtol=ATTN_EXACT_TOL,
+                                     atol=ATTN_EXACT_TOL))
+                 for w in ((want, plain) if exact_vs_plain else (want,)))
+    else:
+        raise ValueError(f"{what}: the exact mode has terms in float32 only")
+    if not ok:
+        raise AssertionError(f"{what}: max abs err {err}, share within "
+                             f"1e-5 {share} (tiled version), max abs err "
+                             f"{plain_err} (plain version)")
     row = {"variant": mode + (" causal" if causal else "")
            + (" strided" if strided else ""),
            "dtype": str(dtype).split(".")[1], "shape_bhhlld": list(shape),
@@ -769,7 +822,14 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
         # (queries right-aligned) query i sees min(lk, i + 1 + lk - lq) keys
         pairs = lq * lk if not causal else sum(
             max(0, min(lk, i + 1 + lk - lq)) for i in range(lq))
-        b_ms, by = bound(nbytes, 4.0 * b * hq * pairs * d, F32_OPS_PER_S)
+        # QK^T and P.V, 2 * d operations a pair each: bf16 q and k multiply
+        # exactly with a float32 sum, so QK^T may run at the bf16 rate;
+        # P is float32, so P.V runs at the float32 rate
+        qk_rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else \
+            F32_OPS_PER_S
+        pv = 2.0 * b * hq * pairs * d
+        b_ms, by = bound(nbytes, pv * (1.0 + F32_OPS_PER_S / qk_rate),
+                         F32_OPS_PER_S)
         numel = b * hq * lq * lk
         row["pairs_per_head"] = pairs
 
@@ -969,6 +1029,16 @@ RECURRENT_LANES = 4
 RECURRENT_PROMPT = 63
 RECURRENT_STEPS = 64
 RECURRENT_SLOTS = 128
+# the encoder-decoder (phase lm_whisper): 4 clips of the stub frontend's
+# frames [4, 1500, 1280], a 4-token prompt, 60 greedy decode steps, caches
+# of 64 slots; the encoder's score rows come in query chunks of
+# layers.Q_CHUNK (512) against all 1500 keys, and its flash-LUT attention
+# takes key tiles of fit_block(1500, 128) = 4
+WHISPER_NAME = "whisper-large-v3"
+WHISPER_CLIPS = 4
+WHISPER_PROMPT = 4
+WHISPER_STEPS = 60
+WHISPER_MAX_LEN = 64
 
 
 def masked_plain(s, mask):
@@ -1070,6 +1140,35 @@ def lm_kernel_rows(dev, gen, rows) -> None:
             dev, gen, kind, RECURRENT_SLOTS,
             (hc.n_kv_heads, hc.n_heads // hc.n_kv_heads), RECURRENT_LANES,
             HYMBA_NAME, sq=RECURRENT_PROMPT), "batch": RECURRENT_LANES})
+    whisper_kernel_rows(dev, gen, rows)
+
+
+def whisper_kernel_rows(dev, gen, rows) -> None:
+    """The encoder-decoder's shapes (whisper-large-v3, 4 clips): the
+    unmasked Q8.24 softmax on an encoder query chunk ``[4 * 20 * 512,
+    1500]`` (the kernel's global path: rows above its slab limit) and on a
+    decode step's cross-attention rows ``[4 * 20, 1500]``; the GELU in
+    bf16 on the encoder's MLP ``[4 * 1500, 5120]`` and a decode step's
+    ``[4, 5120]``; the non-causal flash-LUT attention ``(4, 20, 20, 1500,
+    1500, 64)`` on strided views at key tiles of 4 (375 online rescales a
+    row), float32 under the tight terms and bf16 (the path's dtype)."""
+    cfg = registry.get(WHISPER_NAME).config
+    h, n, ff = cfg.n_heads, cfg.enc_seq, cfg.d_ff
+    b = WHISPER_CLIPS
+    for m, variant in ((b * h * lm_layers.Q_CHUNK, "fixed encoder"),
+                       (b * h, "fixed cross")):
+        r = check_softmax(dev, gen, m, n, True, timed=True)
+        rows["lut_softmax"].append({**r, "model": WHISPER_NAME, "batch": b,
+                                    "variant": variant})
+    for shape in ((b * n, ff), (b, ff)):
+        r = check_gelu(dev, gen, shape, False, torch.bfloat16, True)
+        rows["lut_gelu"].append({**r, "model": WHISPER_NAME, "batch": b,
+                                 "variant": "nearest bf16"})
+    shape = (b, h, h, n, n, cfg.resolved_head_dim)
+    for dtype in (torch.float32, torch.bfloat16):
+        r = check_attention(dev, gen, shape, False, True, dtype=dtype,
+                            timed=True, strided=True)
+        rows["lut_attention"].append({**r, "model": WHISPER_NAME, "batch": b})
 
 
 # ---------------------------------------------------------------------------
@@ -2407,16 +2506,19 @@ def phase_lm_internlm2(dev, tmp: str) -> tuple:
 
 
 def seeded_lm_params(cfg, seed: int) -> dict:
-    """Every leaf of the port's LM layout random, from a numpy seed
-    (matrices fan-in scaled, biases small, norm scales around 1)."""
-    layout = lm_model.init_params(cfg, torch.Generator().manual_seed(seed),
-                                  "cpu")
+    """Every leaf of the port's LM layout (the encdec family's too) random,
+    from a numpy seed (matrices fan-in scaled, biases small, norm scales
+    around 1)."""
+    layout = steps.model_module(cfg).init_params(
+        cfg, torch.Generator().manual_seed(seed), "cpu")
     rng = np.random.default_rng(seed)
 
     def walk(tree, stacked=False, norm=False):
         if isinstance(tree, dict):
-            return {k: walk(v, stacked or k == "blocks",
-                            norm or k in ("ln1", "ln2", "ln_f", "q_norm",
+            return {k: walk(v, stacked or k in ("blocks", "enc_blocks",
+                                                "dec_blocks"),
+                            norm or k in ("ln1", "ln2", "ln3", "ln_f",
+                                          "ln_enc", "ln_dec", "q_norm",
                                           "k_norm", "ln_x", "out_norm_a",
                                           "out_norm_m"))
                     for k, v in tree.items()}
@@ -2504,11 +2606,62 @@ def phase_lm_smoke(dev) -> dict:
             if not ok:
                 failures.append(f"{name} {kw} {plan}: {row['plans'][plan]}")
         out["configs"].append(row)
+    out["configs"].append(smoke_encdec(dev, failures))
     out["failures"] = failures
     emit(out)
     if failures:
         raise AssertionError("; ".join(failures))
     return out
+
+
+def smoke_encdec(dev, failures: list) -> dict:
+    """whisper-large-v3's smoke config at module level under the float,
+    lut and cuda plans' exec_cfg, on the card and on the CPU (the cuda
+    plan there through its kernels' plain versions): decode == forward
+    within the reference's 1e-3, the card against the CPU to
+    ``LM_SMOKE_FLOAT_ATOL`` on every plan (measured 8.3e-7 float, 7.2e-7
+    lut and cuda: no LUT bin moves between the card and the host on
+    these seeded inputs, so a moved bin is a fault), and the cuda
+    plan's launches (two encoder passes — ``encode`` and the prefill's —,
+    two decoder passes and a decode step)."""
+    cfg = registry.get(WHISPER_NAME).smoke
+    np_tree = seeded_lm_params(cfg, 0)
+    rng = np.random.default_rng(1)
+    frames = rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int64)
+    row = {"model": WHISPER_NAME, "variant": {}, "plans": {}}
+    for plan in ("float", "lut", "cuda"):
+        xc = runtime.get_backend(plan).configure(cfg)
+        res = []                          # the card's, then the CPU's
+        for where in (dev, torch.device("cpu")):
+            p = convert.from_numpy_tree(np_tree, where)
+            f, t = (torch.from_numpy(a).to(where) for a in (frames, toks))
+            before = ops.launch_counts()
+            with torch.inference_mode():
+                fwd = encdec.decode_train(p, encdec.encode(p, f, xc), t, xc)
+                st = encdec.init_decode_state(xc, 2, t.shape[1], device=where)
+                _, st = encdec.prefill(p, f, t[:, :-1], xc, st)
+                dec, _ = encdec.decode_step(p, t[:, -1], xc, st)
+            res.append((fwd.cpu(), dec.cpu(), _rise(before)))
+        (fwd, dec, rose), (cpu_fwd, _, cpu_rose) = res
+        want = whisper_expected(cfg, 2, 1, 0) if plan == "cuda" else \
+            {k: 0 for k in rose}
+        if rose != want or any(cpu_rose.values()):
+            failures.append(f"whisper smoke {plan}: launched {rose} on the "
+                            f"card, {cpu_rose} on the cpu, expected {want}")
+        diff = float((fwd - cpu_fwd).abs().max())
+        atol = LM_SMOKE_FLOAT_ATOL
+        r = {"decode_vs_forward_max_abs": float((dec - fwd[:, -1]).abs()
+                                                .max()),
+             "card_vs_cpu_max_abs": diff, "card_vs_cpu_atol": atol,
+             "card_vs_cpu_argmax_agree": float(
+                 (fwd.argmax(-1) == cpu_fwd.argmax(-1)).float().mean())}
+        row["plans"][plan] = r
+        if r["decode_vs_forward_max_abs"] >= WHISPER_REF_DECODE_ATOL or \
+                diff > atol or \
+                r["card_vs_cpu_argmax_agree"] < LM_SMOKE_MIN_ARGMAX:
+            failures.append(f"whisper smoke {plan}: {r}")
+    return row
 
 
 def ring_wrap_rel(eng, cfg) -> float:
@@ -2820,62 +2973,48 @@ RECURRENT_TIMED_PREFILLS = 5
 
 
 @contextlib.contextmanager
-def head_inputs():
-    """While open, the LM head's input of every call is kept (a clone)."""
-    seen = []
-    head = lm_model._head
+def recorded(module, name: str, keep=lambda i, args: True):
+    """While open, ``module.name`` records the positional arguments of the
+    calls whose index ``keep(i, args)`` accepts (the tensors cloned)."""
+    seen, calls = [], [0]
+    fn = getattr(module, name)
 
-    def recording(params, x, cfg):
-        seen.append(x.detach().clone())
-        return head(params, x, cfg)
+    def recording(*args, **kw):
+        if keep(calls[0], args):
+            seen.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor)
+                              else a for a in args))
+        calls[0] += 1
+        return fn(*args, **kw)
 
-    lm_model._head = recording
+    setattr(module, name, recording)
     try:
         yield seen
     finally:
-        lm_model._head = head
+        setattr(module, name, fn)
 
 
-@contextlib.contextmanager
-def masked_scores():
-    """While open, every masked softmax's scores and mask are kept."""
-    seen = []
-    fn = approx.masked_softmax
-
-    def recording(s, mask, mode="exact"):
-        seen.append((s.detach().clone(), mask))
-        return fn(s, mask, mode=mode)
-
-    approx.masked_softmax = recording
-    try:
-        yield seen
-    finally:
-        approx.masked_softmax = fn
-
-
-def drain_batch(eng, prompts, steps: int) -> dict:
-    """The recurrent families' serving, as the reference's: one
-    ``prefill`` of every request's prompt, then ``steps`` greedy
-    ``decode_step`` calls on every lane.  Returns each lane's decoded
-    tokens, the prefill's and each step's milliseconds."""
-    lanes = prompts.shape[0]
-    state = eng.init_decode_state(lanes, RECURRENT_SLOTS)
+def drain_batch(prefill, decode_step, state, steps: int) -> dict:
+    """Serving as one drain batch, as the reference serves the recurrent
+    families and the encoder-decoder: one ``prefill(state)`` of every
+    lane's prompt, then ``steps`` greedy ``decode_step(token, state)``
+    calls on every lane.  Returns each lane's decoded tokens, the
+    prefill's and each step's milliseconds."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, state = eng.prefill(prompts, state)
+    logits, state = prefill(state)
     cur = logits.argmax(-1)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tokens, step_ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        logits, state = eng.decode_step(cur, state)
+        logits, state = decode_step(cur, state)
         cur = logits.argmax(-1)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         tokens.append(cur)
     return {"tokens": torch.stack(tokens, 1).cpu(), "prefill_ms": prefill_ms,
-            "step_ms": step_ms, "state": state, "last": cur}
+            "step_ms": step_ms}
 
 
 def greedy_check(got, want) -> dict:
@@ -2943,7 +3082,10 @@ def phase_lm_recurrent(dev, name: str) -> tuple:
     # the path: one drain batch
     before = ops.launch_counts()
     t0 = time.perf_counter()
-    served = drain_batch(eng, prompts, RECURRENT_STEPS)
+    served = drain_batch(
+        functools.partial(eng.prefill, prompts), eng.decode_step,
+        eng.init_decode_state(RECURRENT_LANES, RECURRENT_SLOTS),
+        RECURRENT_STEPS)
     serve_seconds = time.perf_counter() - t0
     path = _rise(before)
     expected = lm_expected(cfg, 1 + RECURRENT_STEPS)
@@ -2975,12 +3117,15 @@ def phase_lm_recurrent(dev, name: str) -> tuple:
 
     # the checks
     checks = ops.launch_counts()
-    with head_inputs() as heads, masked_scores() as pre_scores:
+    with recorded(lm_model, "_head") as heads, \
+            recorded(approx, "masked_softmax") as pre_scores:
         state = eng.init_decode_state(RECURRENT_LANES, RECURRENT_SLOTS)
         logits, state = eng.prefill(prompts, state)
-    with head_inputs() as dheads, masked_scores() as dec_scores:
+    with recorded(lm_model, "_head") as dheads, \
+            recorded(approx, "masked_softmax") as dec_scores:
         eng.decode_step(logits.argmax(-1), state)
-    out["head_equal"] = require_head_equal(eng, heads + dheads, name)
+    out["head_equal"] = require_head_equal(
+        eng, [x for _, x, _ in heads + dheads], name)
     if hybrid:
         out["softmax_equal"] = {
             "prefill": require_softmax_equal(pre_scores, f"{name} prefill"),
@@ -3087,6 +3232,281 @@ def phase_lm_recurrent(dev, name: str) -> tuple:
     return path, checks, expected
 
 
+# prefill of 15 tokens + one decode step (caches of 16 slots, so that the
+# decode step's masked rows are as long as decode_train's) against
+# decode_train's last logits, over the real vocabulary.  Measured on an
+# H100 80GB HBM3 at 700 W (PERF.md §6): rel 0.0225 on the cuda plan at
+# bf16 (the LUT bins and the bf16 residual stream over 32 random layers,
+# as for the decoder-only LMs), greedy tokens equal but in one clip whose
+# forward's top two were an exact tie; 1.2e-6 absolute on the float plan
+# at float32, held to the reference's own 1e-3 with its greedy tokens.
+WHISPER_CHECK_TOKENS = 16
+WHISPER_DECODE_REL = 0.05
+WHISPER_REF_DECODE_ATOL = 1e-3    # the reference's own (tests/test_models.py)
+# the flash-LUT forward against the xla one (online LUT softmax over key
+# tiles of 4 against the Q8.24 softmax of each row): measured 0.0273 on the
+# logits, argmax agreement 0.922 (59 of 64 positions; random weights leave
+# top-two margins near 0), 0.227 on the memory (recorded)
+WHISPER_FLASH_ATOL = 0.1
+WHISPER_FLASH_MIN_ARGMAX = 0.8
+WHISPER_TIMED = 5                 # encodes and prefills per p50
+
+
+def whisper_expected(cfg, prefills: int, steps: int, flash: int) -> dict:
+    """Launches of the encdec path: a ``prefill`` runs the encoder (one
+    softmax per query chunk of ``Q_CHUNK`` per layer, one GELU per layer)
+    and the prompt through the decoder (per layer one softmax for the self
+    and one for the cross attention, one GELU); a ``decode_step`` the
+    decoder; a flash-LUT forward (``encode`` + ``decode_train`` under
+    ``attention="flash_lut"``) one attention launch per encoder layer and
+    per decoder layer (the causal self attention), one softmax per decoder
+    layer (the cross attention) and one GELU per layer.  The head is a
+    float product: no matmul launch."""
+    chunks = -(-cfg.enc_seq // lm_layers.Q_CHUNK)
+    ne, nd = cfg.n_enc_layers, cfg.n_layers
+    return {"lut_softmax": prefills * (ne * chunks + 2 * nd)
+            + steps * 2 * nd + flash * nd,
+            "lut_gelu": (prefills + flash) * (ne + nd) + steps * nd,
+            "int8_matmul": 0,
+            "lut_attention": flash * (ne + nd)}
+
+
+def whisper_frames(cfg, seed: int, dev) -> torch.Tensor:
+    """The stub frontend's frames [clips, enc_seq, d] from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(
+        WHISPER_CLIPS, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(dev)
+
+
+def whisper_drain(params, frames, prompt, xc) -> dict:
+    """The family's serving at module level under ``xc`` (ROADMAP C11):
+    one ``prefill`` of the audio and the prompt, then greedy
+    ``decode_step`` calls on every clip (``drain_batch``)."""
+    return drain_batch(
+        lambda st: encdec.prefill(params, frames, prompt, xc, st),
+        lambda tok, st: encdec.decode_step(params, tok, xc, st),
+        encdec.init_decode_state(xc, prompt.shape[0], WHISPER_MAX_LEN,
+                                 device=frames.device), WHISPER_STEPS)
+
+
+def whisper_decode_vs_forward(params, frames, toks, xc) -> dict:
+    """prefill of all but the last token + one decode step against the
+    last logits of decode_train on encode, over the real vocabulary."""
+    v = xc.vocab_size
+    fwd = encdec.decode_train(params, encdec.encode(params, frames, xc),
+                              toks, xc)[:, -1, :v].float()
+    state = encdec.init_decode_state(xc, toks.shape[0], toks.shape[1],
+                                     device=frames.device)
+    _, state = encdec.prefill(params, frames, toks[:, :-1], xc, state)
+    dec, _ = encdec.decode_step(params, toks[:, -1], xc, state)
+    dec = dec[:, :v].float()
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError("non-finite decode logits")
+    return {"max_abs": float((dec - fwd).abs().max()),
+            "rel": float((dec - fwd).abs().max() / fwd.abs().max()),
+            **greedy_check(dec, fwd)}
+
+
+def phase_lm_whisper(dev) -> tuple:
+    """whisper-large-v3 at full width (32 encoder and 32 decoder layers, d
+    1280, 20 heads of 64, d_ff 5120, enc_seq 1500, vocab 51866, bf16;
+    random weights drawn on the card by the port's ``init_params`` from
+    seed 0), run as the reference runs this family (ROADMAP C11): the
+    module's ``prefill`` / ``decode_step`` with float params under the
+    ``cuda`` plan's ``exec_cfg`` (``runtime.get_backend("cuda")
+    .configure``, what ``compile_model`` pins).  The path: 4 clips, a
+    4-token prompt, 60 greedy decode steps, then one flash-LUT forward
+    (``encode`` + ``decode_train``).  Then on the same weights: each
+    kernel against its plain version on the model's real inputs, decode
+    against forward (``cuda``; ``float`` at float32), ``flash_lut``
+    against ``xla``, ``cuda`` against ``lut``, p50s, ATen ops a decode
+    step, peak GB.  Returns the path's launches, the checks' launches and
+    the path's expected."""
+    t_phase = time.perf_counter()
+    cfg = registry.get(WHISPER_NAME).config
+    v = cfg.vocab_size
+    cuda = runtime.get_backend("cuda")
+    xc = cuda.configure(cfg)
+    fc = cuda.configure(cfg, attention="flash_lut")
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "lm_whisper", "model": cfg.name, "family": cfg.family,
+           "n_enc_layers": cfg.n_enc_layers, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "enc_seq": cfg.enc_seq, "vocab": v,
+           "dtype": cfg.dtype, "clips": WHISPER_CLIPS,
+           "prompt": WHISPER_PROMPT, "decode_steps": WHISPER_STEPS,
+           "max_len": WHISPER_MAX_LEN,
+           "attention_block_k": ops.fit_block(cfg.enc_seq, ops.ATTN_BLOCK_K)}
+    failures = []
+    with torch.inference_mode():
+        params = encdec.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        out["param_count"] = sum(t.numel() for t in tree_leaves(params))
+        frames = whisper_frames(cfg, 0, dev)
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, v, (WHISPER_CLIPS, WHISPER_PROMPT)).astype(np.int64)).to(dev)
+        # the path: the served clips, then one flash-LUT forward
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        served = whisper_drain(params, frames, prompt, xc)
+        serve_seconds = time.perf_counter() - t0
+        toks = served["tokens"]
+        if tuple(toks.shape) != (WHISPER_CLIPS, WHISPER_STEPS) or \
+                int(toks.max()) >= v or int(toks.min()) < 0:
+            raise AssertionError(f"{tuple(toks.shape)} tokens served, or a "
+                                 "pad id")
+        fmem = encdec.encode(params, frames, fc)
+        ftoks = torch.cat([prompt, toks[:, :WHISPER_CHECK_TOKENS
+                                        - WHISPER_PROMPT].to(dev)], 1)
+        flogits = encdec.decode_train(params, fmem, ftoks, fc)[..., :v]
+        path = _rise(before)
+        expected = whisper_expected(cfg, 1, WHISPER_STEPS, 1)
+        if path != expected:
+            raise AssertionError(f"the whisper path launched {path}, "
+                                 f"expected {expected}")
+        step_p50 = statistics.median(served["step_ms"])
+        out.update(serve_seconds=serve_seconds,
+                   served_prefill_ms=served["prefill_ms"],
+                   p50_decode_step_ms=step_p50,
+                   decode_tok_s=WHISPER_CLIPS / (step_p50 / 1e3),
+                   tokens_served={str(i): len(t)
+                                  for i, t in enumerate(toks.tolist())},
+                   launches=path,
+                   launches_per_call={
+                       "prefill": whisper_expected(cfg, 1, 0, 0),
+                       "decode_step": whisper_expected(cfg, 0, 1, 0),
+                       "flash_forward": whisper_expected(cfg, 0, 0, 1)},
+                   serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        served_tokens = toks
+        del served
+
+        # the checks
+        checks = ops.launch_counts()
+        # 1. the kernels on the model's real inputs: the first and the last
+        # encoder layers' first query chunk of scores and MLP inputs, every
+        # decoder layer's cross-attention rows of a decode step, the first
+        # encoder layer's q, k, v under flash_lut
+        n_sm = cfg.n_enc_layers * -(-cfg.enc_seq // lm_layers.Q_CHUNK)
+        last = n_sm - -(-cfg.enc_seq // lm_layers.Q_CHUNK)
+        with recorded(approx, "masked_softmax",
+                      lambda i, a: i in (0, last)) as enc_scores, \
+                recorded(approx, "gelu",
+                         lambda i, a: i in (0, cfg.n_enc_layers - 1)) as gelus:
+            encdec.encode(params, frames, xc)
+        state = encdec.init_decode_state(xc, WHISPER_CLIPS, WHISPER_MAX_LEN,
+                                         device=dev)
+        logits, state = encdec.prefill(params, frames, prompt, xc, state)
+        with recorded(approx, "masked_softmax",
+                      lambda i, a: a[1] is None) as cross:
+            encdec.decode_step(params, logits.argmax(-1), xc, state)
+        with recorded(ops, "lut_attention", lambda i, a: i == 0) as qkv:
+            encdec.encode(params, frames, fc)
+        del state, logits
+        for what, seen in (("encoder chunk", enc_scores),
+                           ("decode-step cross rows", cross)):
+            for i, (sc, _) in enumerate(seen):
+                require_equal(f"whisper {what} {i} softmax",
+                              ops.lut_softmax(sc, fixed=True),
+                              ref.lut_softmax(sc, fixed=True))
+        for i, (x,) in enumerate(gelus):
+            require_equal(f"whisper encoder MLP {i} GELU", ops.lut_gelu(x),
+                          ref.lut_gelu(x))
+        q, k, hv = qkv[0][:3]
+        shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                 q.shape[3])
+        attn = {str(dt).split(".")[1]: check_attention(
+            dev, None, shape, False, True,
+            qkv=tuple(t.to(dt) for t in (q, k, hv)))
+            for dt in (torch.bfloat16, torch.float32)}
+        out["kernels_on_real_inputs"] = {
+            "softmax_encoder_chunks": [list(sc.shape) for sc, _ in enc_scores],
+            "softmax_cross_rows": {"layers": len(cross),
+                                   "scores": list(cross[0][0].shape)},
+            "gelu_encoder_mlp": [list(x.shape) for (x,) in gelus],
+            "gelu_dtype": str(gelus[0][0].dtype), "equal": True,
+            "attention": {k: {f: r[f] for f in ("shape_bhhlld", "block_k",
+                                                "max_abs_err", "within_1e-5",
+                                                "plain_max_abs_err")}
+                          for k, r in attn.items()}}
+        del enc_scores, cross, gelus, qkv, q, k, hv
+        # 2. decode against forward: cuda (bf16), float at float32
+        ctoks = ftoks
+        dvf = {"cuda": whisper_decode_vs_forward(params, frames, ctoks, xc)}
+        p32 = tree_map(lambda t: t.float(), params)
+        c32 = runtime.get_backend("float").configure(
+            cfg.with_(dtype="float32"))
+        dvf["float32"] = whisper_decode_vs_forward(p32, frames, ctoks, c32)
+        del p32
+        out["decode_vs_forward"] = dvf
+        if dvf["float32"]["max_abs"] >= WHISPER_REF_DECODE_ATOL or \
+                not dvf["float32"]["argmax_equal"]:
+            failures.append(f"float32: prefill + decode_step against "
+                            f"forward {dvf['float32']}")
+        if dvf["cuda"]["rel"] >= WHISPER_DECODE_REL or \
+                not dvf["cuda"]["greedy_ok"]:
+            failures.append(f"cuda: prefill + decode_step against forward "
+                            f"{dvf['cuda']}")
+        # 3. flash_lut against xla: the memory and the logits
+        xmem = encdec.encode(params, frames, xc)
+        xlogits = encdec.decode_train(params, xmem, ftoks, xc)[..., :v]
+        out["flash_vs_xla"] = {
+            "memory_max_abs": float((fmem.float() - xmem.float()).abs().max()),
+            "logits_max_abs": float((flogits.float() - xlogits.float())
+                                    .abs().max()),
+            "argmax_agree": float((flogits.argmax(-1) == xlogits.argmax(-1))
+                                  .float().mean())}
+        if not bool(torch.isfinite(flogits).all()) or \
+                out["flash_vs_xla"]["logits_max_abs"] > WHISPER_FLASH_ATOL or \
+                out["flash_vs_xla"]["argmax_agree"] < WHISPER_FLASH_MIN_ARGMAX:
+            failures.append(f"flash_lut against xla {out['flash_vs_xla']}")
+        del fmem, flogits
+        # 4. cuda against the plain lut plan on the card (recorded)
+        lc = runtime.get_backend("lut").configure(cfg)
+        llogits = encdec.decode_train(params, encdec.encode(params, frames,
+                                                            lc), ftoks, lc)[..., :v]
+        lut_served = whisper_drain(params, frames, prompt, lc)["tokens"]
+        out["cuda_vs_lut"] = {
+            "max_abs": float((xlogits.float() - llogits.float()).abs().max()),
+            "argmax_agree": float((xlogits.argmax(-1) == llogits.argmax(-1))
+                                  .float().mean()),
+            "greedy_tokens_equal": int((lut_served == served_tokens).sum()),
+            "greedy_tokens": served_tokens.numel(),
+            "greedy_equal_prefix": [int((a != b).nonzero()[0])
+                                    if bool((a != b).any()) else len(a)
+                                    for a, b in zip(served_tokens,
+                                                    lut_served)]}
+        del xmem, xlogits, llogits
+        # 5. p50 of encode and prefill, ATen ops a decode step
+        enc_ms, pre_ms = [], []
+        for _ in range(WHISPER_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encdec.encode(params, frames, xc)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+            st = encdec.init_decode_state(xc, WHISPER_CLIPS, WHISPER_MAX_LEN,
+                                          device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, st = encdec.prefill(params, frames, prompt, xc, st)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+        with CountOps() as counter:
+            encdec.decode_step(params, logits.argmax(-1), xc, st)
+        del st, logits, params, frames
+    gc.collect()
+    out.update(p50_encode_ms=statistics.median(enc_ms),
+               p50_prefill_ms=statistics.median(pre_ms),
+               aten_ops_per_decode_step=counter.n,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    checks = _rise(checks)
+    out.update(check_launches=checks, failures=failures,
+               seconds=time.perf_counter() - t_phase)
+    emit(out)
+    if failures:
+        raise AssertionError(f"{cfg.name}: " + "; ".join(failures))
+    return path, checks, expected
+
+
 # ---------------------------------------------------------------------------
 # the contract line
 # ---------------------------------------------------------------------------
@@ -3110,7 +3530,8 @@ EXTRA_KEYS = ("bytes_bound_ms", "input", "library_call", "int_mm_ms",
               "f32_matmul_device_ms", "bf16_matmul_ms",
               "bf16_matmul_device_ms", "pairs_per_head")
 LM_ROW_KEYS = ("variant", "tag", "batch", "shape", "shape_mkn",
-               "shape_bhhlld", "max_abs_err") + TIMED_KEYS + EXTRA_KEYS
+               "shape_bhhlld", "block_k", "within_1e-5", "plain_max_abs_err",
+               "dtype", "max_abs_err") + TIMED_KEYS + EXTRA_KEYS
 
 
 def _variants(rows: list, model: str, batch: int, tag) -> list:
@@ -3189,7 +3610,11 @@ def kernels_line(rows: dict, launches: dict, expected: dict,
                      if r.get("model") == RWKV_NAME and "ms" in r],
             "hybrid": [{k: r[k] for k in LM_ROW_KEYS if k in r}
                        for r in rows[name]
-                       if r.get("model") == HYMBA_NAME and "ms" in r]})
+                       if r.get("model") == HYMBA_NAME and "ms" in r],
+            # the encoder-decoder's rows (whisper-large-v3, 4 clips)
+            "encdec": [{k: r[k] for k in LM_ROW_KEYS if k in r}
+                       for r in rows[name]
+                       if r.get("model") == WHISPER_NAME and "ms" in r]})
     return {"kernels": entries}
 
 
@@ -3323,6 +3748,19 @@ def main() -> None:
             time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
+    # the encdec path: the whisper clips' prefill and greedy decode and one
+    # flash-LUT forward, less the launches of the checks its phase makes
+    # after them
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    rose, wchecks, wexp = phase_lm_whisper(dev)
+    counted = ops.launch_counts()
+    launches["encdec"] = {n: counted[n] - wchecks[n] for n in counted}
+    expected["encdec"] = wexp
+    if launches["encdec"] != rose:
+        raise AssertionError(f"encdec launches {launches['encdec']} are not "
+                             f"those of its clips and flash forward, {rose}")
+    seconds["lm_whisper"] = time.perf_counter() - t0
     emit({"phase": "seconds", "seconds": seconds,
           "total": time.perf_counter() - t_start})
 

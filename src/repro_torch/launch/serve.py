@@ -95,6 +95,13 @@ def main(argv=None):
 
     entry = registry.get(args.arch)
     cfg = entry.smoke if args.smoke else entry.config
+    if cfg.family == "encdec":
+        # as the reference's launcher refuses it: the family runs at
+        # module level only (ROADMAP C11)
+        raise ValueError(
+            f"launch.serve does not serve the encdec family ({args.arch}): "
+            "drive repro_torch.models.encdec (prefill, decode_step) with "
+            "float params and the plan's exec_cfg (ROADMAP C11)")
     requests = make_requests(cfg, args.requests, args.max_len, args.seed)
 
     with serve_common.session(args.telemetry_out) as (tracer, met):

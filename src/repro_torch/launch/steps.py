@@ -42,9 +42,9 @@ def microbatches(cfg: ModelConfig, shape: ShapeSpec) -> int:
 
 
 def model_module(cfg: ModelConfig):
-    """The model module of ``cfg``'s family (``models.kwt``, or
-    ``models.transformer`` for the dense, moe, rwkv and hybrid LMs); the
-    encdec family raises and names its ROADMAP item."""
+    """The model module of ``cfg``'s family: ``models.kwt``,
+    ``models.encdec`` for whisper, or ``models.transformer`` for the
+    dense, moe, rwkv and hybrid LMs."""
     return _model_module(cfg)
 
 

@@ -106,6 +106,11 @@ def _dtype(cfg):
     return getattr(torch, cfg.dtype)
 
 
+def _mesh_only(what: str):
+    raise NotImplementedError(
+        f"{what} shards over a mesh: it waits for ROADMAP queue A item 4")
+
+
 def he(generator, shape, scale, dtype, device="cpu"):
     """Scaled-normal initialiser.  Drawn from ``generator`` on the
     generator's own device (a CPU generator gives one stream of numbers

@@ -27,7 +27,7 @@ the state with its index advanced; the reference returns new ones
 instead.  ``merge_decode_state`` builds new tensors, so a caller that
 merges never aliases the states it merges.
 
-The encdec family (whisper) waits for ROADMAP queue A item 3 and raises.
+The encdec family (whisper) is ``models.encdec``; it raises here.
 """
 
 from __future__ import annotations
@@ -49,9 +49,9 @@ FAMILIES = KV_FAMILIES + RECURRENT_FAMILIES
 
 def _lm_family(cfg):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet: it waits for ROADMAP "
-            f"queue A item 3 ({cfg.family})")
+        raise ValueError(
+            f"family={cfg.family!r} is not a decoder-only LM (the encdec "
+            "family is models.encdec, kwt models.kwt)")
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,12 @@ tokens -> logits) instead, which ``cell.scheduler`` and
 ``launch/serve.py`` run off (dense and moe; the recurrent families are
 served as one drain batch through these entry points, as in the
 reference); each kind's entry points raise on the other's engine.
+The encdec family (whisper) is planned like the LMs but runs at module
+level only (ROADMAP C11): ``models.encdec`` with float params and the
+plan's ``exec_cfg``.  Its engine's ``init_decode_state``, ``prefill``,
+``decode_step`` and ``forward`` raise ``TypeError`` naming C11 (the
+reference's ``prefill`` raises a bare ``TypeError``, since it passes no
+frames, so a state from its engine has no use).
 
 Execution is eager under ``torch.inference_mode()``: there is no jit to
 plan, so the reference's jitted programs, its flat-leaf dispatch and its
@@ -69,12 +75,13 @@ def _model_module(cfg):
     if cfg.family == "kwt":
         from repro_torch.models import kwt
         return kwt
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        return encdec
     from repro_torch.models import transformer
     if cfg.family in transformer.FAMILIES:
         return transformer
-    raise NotImplementedError(
-        f"family={cfg.family!r} is not ported yet: it waits for ROADMAP "
-        f"queue A item 3 ({cfg.family})")
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def _tree_bytes(tree) -> int:
@@ -139,6 +146,7 @@ class Engine:
         ``(logits, aux)`` where ``aux`` maps tap sites to quantisation-
         health scalars (telemetry.taps).  The logits come from the
         untapped pass either way."""
+        self._refuse_encdec("forward")
         tr = _trace.active_tracer()
         if tr is None and not self.taps:
             with torch.inference_mode():
@@ -234,6 +242,7 @@ class Engine:
         (``kv_dtype``: float32 on the integer plans, whose blocks are a
         float32 view), and the recurrences of rwkv and hybrid."""
         self._require_lm("init_decode_state")
+        self._refuse_encdec("init_decode_state")
         return self._mod.init_decode_state(
             self.exec_cfg, batch, max_len, device=self.device,
             dtype=self._mod.kv_dtype(self.params, self.exec_cfg))
@@ -249,6 +258,7 @@ class Engine:
 
     def _lm_call(self, what: str, tokens, state):
         self._require_lm(what)
+        self._refuse_encdec(what)
         fn = getattr(self._mod, what)
         tr = _trace.active_tracer()
         if tr is None:
@@ -268,6 +278,13 @@ class Engine:
                 f"{what} is a KWT streaming entry point; family="
                 f"{self.exec_cfg.family!r} engines expose forward/prefill/"
                 "decode_step")
+
+    def _refuse_encdec(self, what: str):
+        if self.exec_cfg.family == "encdec":
+            raise TypeError(
+                f"Engine.{what} does not drive the encdec family (ROADMAP "
+                "C11): call repro_torch.models.encdec (encode, prefill, "
+                "decode_step) with float params and this plan's exec_cfg")
 
     def _require_lm(self, what: str):
         if self.exec_cfg.family == "kwt":
@@ -492,11 +509,11 @@ def compile_model(cfg, params, backend="float",
     second pass; the logits are the untapped pass's, equal to a
     ``taps=False`` plan's.
 
-    The LM families (dense, moe, rwkv, hybrid) get PARTIAL residency under an
-    integer-executing backend (``lut`` / ``cuda``): embedding and head stay
-    packed, the blocks are dequantised, and the plan is pinned
-    integer-executing (``_lm_partial_resident``); ``integer_resident``
-    overrides that as it does for KWT.
+    The LM families (dense, moe, rwkv, hybrid, encdec) get PARTIAL
+    residency under an integer-executing backend (``lut`` / ``cuda``):
+    embedding and head stay packed, the blocks are dequantised, and the
+    plan is pinned integer-executing (``_lm_partial_resident``);
+    ``integer_resident`` overrides that as it does for KWT.
 
     ``device=None`` resolves to the CUDA device and raises when there is
     none.  The ``cuda`` backend on a CPU device raises, unless

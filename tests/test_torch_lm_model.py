@@ -120,10 +120,17 @@ def test_registry_resolves_every_reference_name():
 
 @pytest.mark.parametrize("name", ["whisper-large-v3"])
 def test_other_lm_families_raise_and_name_their_item(name):
+    """The encdec family has its own module (tests/test_torch_encdec.py):
+    ``model_module`` returns it and it builds the tree, while the
+    decoder-only module refuses the family and names the one to use."""
+    from repro_torch.models import encdec as TE
     cfg = tregistry.get(name).smoke
-    with pytest.raises(NotImplementedError, match=f"item 3 \\({cfg.family}\\)"):
-        tsteps.model_module(cfg)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    assert tsteps.model_module(cfg) is TE
+    tp = TE.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert sorted(tp) == ["dec_blocks", "embed", "enc_blocks", "ln_dec",
+                          "ln_enc"]
+    assert tp["enc_blocks"]["attn"]["wq"].shape[0] == cfg.n_enc_layers
+    with pytest.raises(ValueError, match="models.encdec"):
         TT.init_params(cfg, torch.Generator(), "cpu")
 
 

@@ -286,8 +286,8 @@ def test_later_items_raise_and_name_them():
     with pytest.raises(NotImplementedError, match="queue A item 4"):
         tsteps.make_train_step(tcfg, shape, sync_mesh=object())
     assert tsteps.microbatches(tcfg, shape) == 1
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        tsteps.model_module(tcfg.with_(family="encdec"))
+    from repro_torch.models import encdec
+    assert tsteps.model_module(tcfg.with_(family="encdec")) is encdec
     for argv in (["--data", "2"], ["--compressed-grads"]):
         with pytest.raises(NotImplementedError, match="queue A item 4"):
             ttrain.main(["--device", "cpu", "--steps", "1"] + argv)
