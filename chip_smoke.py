@@ -5,8 +5,8 @@ Needs one NVIDIA GPU (built for Hopper, ``sm_90a``) and ``nvcc``; takes no
 arguments.  It drives the port's main paths — the Keyword Transformer
 served offline through ``repro_torch.runtime``, streamed hop by hop, and
 trained with quantisation-aware training, the dense LM (internlm2-1.8b
-at full width) and the moe LM (granite-moe-3b-a800m at full width) served
-with continuous batching, the recurrent LMs (rwkv6-3b and hymba-1.5b at
+at full width, on the float and on the int8 KV cache) and the moe LM
+(granite-moe-3b-a800m at full width) served with continuous batching, the recurrent LMs (rwkv6-3b and hymba-1.5b at
 full width) served as one drain batch, the encoder-decoder
 (whisper-large-v3 at full width) run at module level under the ``cuda``
 plan's ``exec_cfg`` — on the card, and is the quickest proof that the port
@@ -180,7 +180,28 @@ still builds and starts there:
                        ``flash_lut`` forward at B = 2, S = 1024 against the
                        ``xla`` one (``LM_FLASH_*``; one attention launch
                        per layer, counted on the path); p50 ms per decode
-                       step and per prefill, ATen ops per step.
+                       step and per prefill, ATen ops per step; the
+                       forward of its 4 x 63 prefill tokens priced by
+                       ``perf.engine_cost`` (products at the hand count)
+                       beside its p50 against the H100's bf16 and float32
+                       roofs and the calibrated one (the moe and recurrent
+                       phases price theirs the same way).
+    ``lm_int8_kv``     the same weights on the int8 KV cache
+                       (``QuantConfig(quantize_kv_cache=True)``): the 8
+                       requests on 4 slots, KV 256, through
+                       ``compile_model`` + ``LMScheduler`` (the
+                       ``lm_int8_kv`` path: one softmax per layer and one
+                       head matmul per call, no GELU, no attention); the
+                       leaves int8 codes / float32 scales and their bytes
+                       against the float32 cache's; ``_q8_vec`` on the card
+                       ``torch.equal`` to the CPU's on layer 0's real keys
+                       and values (their round trip recorded); prefill +
+                       decode against forward (``LM_KV8_DECODE_REL``) and
+                       a per-lane step equal to the scalar one; the int8
+                       cache against the float one, teacher-forced
+                       (``LM_KV8_*``) and over the same schedule
+                       (recorded); p50 per prefill and decode step of both
+                       caches in turns.
 14. ``lm_dense_smoke`` the five dense smoke configs and the two moe ones
                        (granite-moe, deepseek-moe with its 2 shared
                        experts) under ``float``, ``lut`` and ``cuda``:
@@ -189,7 +210,12 @@ still builds and starts there:
                        card against the same plan on the CPU (the ``cuda``
                        plan there through its kernels' plain versions):
                        1e-4 on ``float``, two steps of the head's eq-9
-                       input on the integer plans (``LM_SMOKE_*``).
+                       input on the integer plans (``LM_SMOKE_*``); every
+                       plan priced by ``perf.engine_cost`` the same on the
+                       card as on the CPU, the three plans' products
+                       equal; the int8 KV cache on internlm2, granite-moe
+                       and hymba (and across its ring's wrap), card against
+                       CPU (``SMOKE_INT8``).
 15. ``lm_granite_moe`` granite-moe-3b-a800m at full width (32 layers, d
                        1536, 24 heads / 8 KV, 40 experts padded to 48,
                        top-8, expert_d_ff 512, vocab 49155, bf16; random
@@ -278,7 +304,8 @@ still builds and starts there:
    config, and 20 tokens of hymba decoded into its ring of 8 slots on the
    card against ``forward`` (the ring wraps twice), and the whisper smoke
    config at module level under the float, lut and cuda plans (decode ==
-   forward within the reference's 1e-3, card against CPU).  The kernel
+   forward within the reference's 1e-3, card against CPU), and again on
+   the int8 self cache.  The kernel
    phase (3) also holds and times the whisper shapes: the softmax on an
    encoder query chunk ``[40960, 1500]`` and cross rows ``[80, 1500]``,
    the GELU in bf16 at ``[6000, 5120]`` and ``[4, 5120]``, the attention
@@ -286,9 +313,10 @@ still builds and starts there:
 
 The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
 the train phases (11, 12), the LM server with its ``flash_lut`` forward
-(13), the moe server (15), the two recurrent LMs' drain batches (16,
-17) and the whisper clips with their ``flash_lut`` forward (18) are the
-main paths: the counters go to 0
+(13), the int8-cache scheduler run (``lm_int8_kv``), the moe server
+(15), the two recurrent LMs' drain batches (16, 17) and the whisper
+clips with their ``flash_lut`` forward (18) are the main paths: the
+counters go to 0
 just before each group and are read just after it; the launches of the
 stream phases' check forwards, of the cell phase's checks (hot-swap's warm
 and probe forwards, the refused artifact's, the taps plan's) and of the
@@ -352,7 +380,7 @@ from repro_torch import cell as cellmod  # noqa: E402
 from repro_torch import convert, perf, qat, runtime, telemetry  # noqa: E402
 from repro_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.configs.base import QuantConfig, ShapeSpec  # noqa: E402
 from repro_torch.core import approx, quant  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
@@ -1238,6 +1266,50 @@ def roofline_rows(rep, ms: float, measured) -> dict:
                                             measured)}
 
 
+# the float32 roof: the LM plans' blocks are a float32 view multiplied
+# with TF32 off, outside the tensor cores' bf16 rate that perf.H100 carries
+H100_FP32 = perf.MachineModel(name="h100-sxm-fp32",
+                              peak_flops=roofline.H100_PEAK_FLOPS_FP32,
+                              mem_bw=roofline.H100_HBM_BW,
+                              clock_hz=roofline.H100_CLOCK_HZ)
+
+
+def analytic_lm_matmul_flops(cfg, batch: int, t: int) -> int:
+    """A dense LM forward's products over ``t`` tokens counted by hand
+    (tests/test_torch_perf.py checks the formula on the smoke config):
+    Q, K, V and O, the full ``t x t`` score and value products, the gated
+    MLP, the untied head."""
+    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, cfg.d_ff)
+    per_layer = (2 * t * d * h * dh + 2 * 2 * t * d * kv * dh
+                 + 2 * 2 * h * t * t * dh + 2 * t * h * dh * d
+                 + 3 * 2 * t * d * f)
+    return batch * (cfg.n_layers * per_layer + 2 * t * d * cfg.padded_vocab)
+
+
+def price_lm_forward(eng, tokens, roof, what: str, analytic=None) -> dict:
+    """``perf.engine_cost`` of ``eng.forward`` on ``tokens`` (a phase's
+    4 x 63 prompts) beside that forward's p50: the cost's totals and lines
+    and the roofline terms against the H100's datasheet (bf16 and float32
+    rates) and the calibrated roof.  The walk must leave the launch
+    counters as they were; ``analytic``, where given, must be the
+    products' count."""
+    x = torch.as_tensor(tokens).to(eng.device)
+    before = ops.launch_counts()
+    rep = perf.engine_cost(eng, x=x)
+    if ops.launch_counts() != before:
+        raise AssertionError(f"{what}: the walk moved the counters")
+    if analytic is not None and rep.matmul_flops != analytic:
+        raise AssertionError(f"{what}: matmul_flops {rep.matmul_flops}, "
+                             f"analytic {analytic}")
+    ms = p50_ms(lambda: eng.forward(x))
+    return {"tokens": list(x.shape), "p50_ms": ms,
+            "matmul_flops_analytic": analytic, "cost": rep.to_dict(),
+            "h100_fp32": perf.roofline_terms(rep.flops, rep.bytes, ms * 1e-3,
+                                             H100_FP32),
+            **roofline_rows(rep, ms, roof)}
+
+
 def flight_attribution(eng, fcfg, tmp: str) -> dict:
     """A span-less slow-hop dump of a StreamLanes cell on ``eng``'s
     device: every hop is over a budget of 1e-9 ms, no tracer is active,
@@ -1271,14 +1343,15 @@ def flight_attribution(eng, fcfg, tmp: str) -> dict:
             "stage_weights": cell.flight.stage_weights}
 
 
-def phase_perf(dev, info: dict) -> None:
+def phase_perf(dev, info: dict):
     """The cost model and the rooflines on the card: the measured
     envelope (no reading over the datasheet), every serve plan's cost
     priced the same on the card and on the CPU with its products at the
     analytic count, its p50 against the H100's datasheet roof and the
     measured one; one KWT-1 hop of 64 lanes the same way with its stage
     weights; a StreamLanes flight dump on the card attributed by the cost
-    model to the stage the same cell on the CPU names."""
+    model to the stage the same cell on the CPU names.  Returns the
+    measured envelope (the LM phases price their forwards against it)."""
     measured = perf.calibrate(device=dev)
     if measured.peak_flops > CALIBRATION_SLACK * roofline.H100_PEAK_FLOPS_FP32 \
             or measured.mem_bw > CALIBRATION_SLACK * roofline.H100_HBM_BW:
@@ -1358,6 +1431,7 @@ def phase_perf(dev, info: dict) -> None:
                              f"than the CPU's: {on_card} / {on_cpu}")
     out["flight"] = {"card": on_card, "cpu": on_cpu}
     emit(out)
+    return measured
 
 
 # ---------------------------------------------------------------------------
@@ -2329,16 +2403,42 @@ def lm_schedule(eng, requests, order) -> dict:
     return sched.run()
 
 
-def phase_lm_internlm2(dev, tmp: str) -> tuple:
+def time_lm_calls(eng, ptoks) -> tuple:
+    """p50 ms of a prefill of ``ptoks`` into fresh states of 256 slots
+    (5 of them) and of LM_TIMED greedy decode steps after it; returns them
+    with the last step's greedy tokens and state."""
+    pre, dsteps = [], []
+    for _ in range(5):
+        st = eng.init_decode_state(LM_SLOTS, 256)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = eng.prefill(ptoks, st)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    cur = logits.argmax(-1)
+    for _ in range(LM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = eng.decode_step(cur, st)
+        cur = logits.argmax(-1)
+        torch.cuda.synchronize()
+        dsteps.append((time.perf_counter() - t0) * 1e3)
+    return {"p50_prefill_ms": statistics.median(pre),
+            "p50_decode_step_ms": statistics.median(dsteps)}, cur, st
+
+
+def phase_lm_internlm2(dev, tmp: str, roof) -> tuple:
     """internlm2-1.8b at full width (24 layers, d 2048, 16 heads / 8 KV,
     head_dim 128, d_ff 8192, vocab 92544, bf16; random weights drawn on the
     card from the seed) served through ``repro_torch.launch.serve`` under
     ``--backend cuda`` with tracing on: 8 requests on 4 slots; then, on the
     same plan, prefill + decode against forward, the same requests in two
     orders, cuda against lut, flash_lut against xla, p50 per decode step
-    and per prefill.  Returns the path's launches (the served run and the
-    ``flash_lut`` forward), the launches of the other checks, and the
-    path's expected."""
+    and per prefill, and the forward of the 4 x 63 prefill tokens priced
+    by ``perf.engine_cost`` (products at the hand count) beside its p50
+    against ``roof``.  Returns the path's launches (the served run and the
+    ``flash_lut`` forward), the launches of the other checks, the path's
+    expected, and the weights (``phase_lm_int8_kv`` serves them again)."""
     cfg = registry.get(LM_NAME).config
     trace = os.path.join(tmp, "lm_serve.json")
     argv = LM_SERVE_ARGS + ["--telemetry-out", trace]
@@ -2436,33 +2536,17 @@ def phase_lm_internlm2(dev, tmp: str) -> tuple:
         failures.append("tokens depend on the submission order")
     out["order_invariant_requests"] = len(a)
     # p50 per decode step and per prefill, 4 slots, and ATen ops per step
-    state = eng.init_decode_state(LM_SLOTS, 256)
     ptoks = rng.integers(0, cfg.vocab_size, (LM_SLOTS, 63)).astype(np.int32)
-    pre = []
-    for _ in range(5):
-        st = eng.init_decode_state(LM_SLOTS, 256)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, st = eng.prefill(ptoks, st)
-        torch.cuda.synchronize()
-        pre.append((time.perf_counter() - t0) * 1e3)
-    state = st
-    cur = logits.argmax(-1)
-    dsteps = []
-    for _ in range(LM_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, state = eng.decode_step(cur, state)
-        cur = logits.argmax(-1)
-        torch.cuda.synchronize()
-        dsteps.append((time.perf_counter() - t0) * 1e3)
+    timed, cur, state = time_lm_calls(eng, ptoks)
     with CountOps() as counter:
         eng.decode_step(cur, state)
-    out.update(p50_prefill_ms=statistics.median(pre),
-               prefill_tokens=list(ptoks.shape),
-               p50_decode_step_ms=statistics.median(dsteps),
-               decode_tok_s=LM_SLOTS / (statistics.median(dsteps) / 1e3),
+    del state
+    out.update(timed, prefill_tokens=list(ptoks.shape),
+               decode_tok_s=LM_SLOTS / (timed["p50_decode_step_ms"] / 1e3),
                aten_ops_per_decode_step=counter.n)
+    out["priced_forward"] = price_lm_forward(
+        eng, ptoks, roof, cfg.name,
+        analytic_lm_matmul_flops(cfg, *ptoks.shape))
     # cuda against lut on the card (by design apart: the masked
     # renormalisation), flash_lut against xla
     lut = runtime.compile_model(cfg, params, backend="lut", device=dev)
@@ -2475,7 +2559,6 @@ def phase_lm_internlm2(dev, tmp: str) -> tuple:
     del lut_logits
     flash = runtime.compile_model(cfg, params, backend="cuda",
                                   attention="flash_lut", device=dev)
-    del params
     ftoks = rng.integers(0, cfg.vocab_size, LM_FLASH_TOKENS).astype(np.int32)
     # the flash_lut forward is the path's too (a user's Engine.forward)
     before = ops.launch_counts()
@@ -2502,6 +2585,216 @@ def phase_lm_internlm2(dev, tmp: str) -> tuple:
     emit(out)
     if failures:
         raise AssertionError(f"{cfg.name}: " + "; ".join(failures))
+    return path, checks, expected, params
+
+
+# internlm2-1.8b on the int8 KV cache (cfg.quant.quantize_kv_cache).
+# Decode against forward (prefill of 63 + one step, as LM_DECODE_REL's):
+# measured 0.1388 on the card (PERF.md §6, PR 23), the float cache's 0.0405
+# plus the cache's own noise: tools/lm_decode_gap.py --kv8 reads 0.0788
+# with both LUTs off at float32 activations (the float cache: 1.4e-6),
+# entering at layer 0 (0.016) and carried smoothly to layer 23 (0.025),
+# no layer stepping out; each cached vector round-trips within 0.95 % rms
+# (a step of up to 2 maxabs / 127).  Held to 0.2 with its argmax.  The
+# int8 cache against the float one over a prefill of the 4 x 63 prompts
+# and LM_KV8_STEPS decode steps teacher-forced with the float cache's
+# greedy tokens: the largest logit gap over the float logits' largest
+# magnitude, measured at most 0.1094 (held 0.15), and the share of equal
+# greedy tokens, 0.985 (held 0.9).
+LM_KV8_DECODE_REL = 0.2
+LM_KV8_VS_FLOAT_REL = 0.15
+LM_KV8_MIN_ARGMAX = 0.9
+LM_KV8_STEPS = 32
+
+
+def kv8_config(cfg):
+    return cfg.with_(quant=QuantConfig(quantize_kv_cache=True))
+
+
+def state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(state["layers"]))
+
+
+def phase_lm_int8_kv(dev, params) -> tuple:
+    """internlm2-1.8b at full width on the ``cuda`` plan with its KV cache
+    in int8 (``QuantConfig(quantize_kv_cache=True)``: int8 codes and a
+    float32 power-of-two scale per token and KV head), on the weights of
+    ``lm_internlm2``: the same 8 requests on 4 slots, KV 256, through
+    ``runtime.compile_model`` and ``LMScheduler`` (the path).  Then: the
+    cache's leaves and bytes against the float cache's; ``_q8_vec`` on
+    the card ``torch.equal`` to the CPU's on layer 0's real keys and
+    values; prefill + decode against forward and a per-lane step equal to
+    the scalar one; the int8 cache against the float cache, teacher-forced
+    and free-running over the same schedule; p50 per decode step and per
+    prefill of both caches.  Returns the path's launches, the launches of
+    the checks and the path's expected."""
+    cfg = registry.get(LM_NAME).config
+    eng8 = runtime.compile_model(kv8_config(cfg), params, backend="cuda",
+                                 device=dev)
+    requests = lm_serve.make_requests(cfg, 8, 256, 0)
+    met = telemetry.make_cell_metrics(telemetry.Registry())
+    torch.cuda.reset_peak_memory_stats()
+    sched = cellmod.LMScheduler(eng8, slots=LM_SLOTS, max_len=256,
+                                metrics=met)
+    for r in requests:
+        sched.submit(r["id"], r["prompt"], r["gen"])
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    served = sched.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    path = _rise(before)
+    steps_run, prefills = met.decode_ms.count, met.prefill_ms.count
+    expected = lm_expected(cfg, steps_run + prefills)
+    if path != expected:
+        raise AssertionError(f"the int8-cache scheduler launched {path}, "
+                             f"expected {expected} ({steps_run} decode "
+                             f"steps, {prefills} prefills)")
+    for r in requests:
+        got = served.get(r["id"], [])
+        if len(got) != r["gen"] or not all(0 <= t < cfg.vocab_size
+                                           for t in got):
+            raise AssertionError(f"int8 cache, request {r['id']}: {len(got)}"
+                                 f" tokens of {r['gen']}, or a pad id")
+    layers = sched.state["layers"]
+    leaves = {k: [str(v.dtype), list(v.shape)] for k, v in layers.items()}
+    codes = (cfg.n_layers, LM_SLOTS, 256, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    if leaves != {"k": ["torch.int8", list(codes)],
+                  "ks": ["torch.float32", list(codes[:4])],
+                  "v": ["torch.int8", list(codes)],
+                  "vs": ["torch.float32", list(codes[:4])]}:
+        raise AssertionError(f"the int8 cache's leaves: {leaves}")
+    failures = []
+    out = {"phase": "lm_int8_kv", "model": cfg.name, "slots": LM_SLOTS,
+           "max_len": 256, "requests": len(requests),
+           "serve_seconds": seconds, "decode_steps": steps_run,
+           "prefills": prefills,
+           "tokens_served": {str(k): len(v) for k, v in served.items()},
+           "p50_decode_step_ms_served": met.decode_ms.quantile(0.5),
+           "launches": path, "cache_leaves": leaves,
+           "serve_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del sched
+
+    # the checks
+    checks = ops.launch_counts()
+    eng = runtime.compile_model(cfg, params, backend="cuda", device=dev)
+    fstate = eng.init_decode_state(LM_SLOTS, 256)
+    out["cache_bytes"] = {
+        "int8": state_bytes({"layers": layers}),
+        "int8_reckoned": 2 * int(np.prod(codes)) + 2 * 4 * int(
+            np.prod(codes[:4])),
+        "float": state_bytes(fstate), "float_dtype": str(
+            fstate["layers"]["k"].dtype)}
+    del layers, fstate
+    if out["cache_bytes"]["int8"] != out["cache_bytes"]["int8_reckoned"]:
+        failures.append(f"int8 cache bytes: {out['cache_bytes']}")
+    rng = np.random.default_rng(8)
+    ptoks = rng.integers(0, cfg.vocab_size, (LM_SLOTS, 63)).astype(np.int32)
+    # _q8_vec on the card against the CPU on layer 0's real K and V
+    with recorded(lm_layers, "_q8_vec", keep=lambda i, a: i < 2) as kv:
+        eng8.prefill(ptoks, eng8.init_decode_state(LM_SLOTS, 256))
+    q8 = {}
+    for name, (x,) in zip(("k", "v"), kv):
+        qc, sc = lm_layers._q8_vec(x)
+        qh, sh = lm_layers._q8_vec(x.cpu())
+        require_equal(f"_q8_vec {name} codes", qc.cpu(), qh)
+        require_equal(f"_q8_vec {name} scales", sc.cpu(), sh)
+        m, _ = torch.frexp(sh)
+        if not bool((m == 0.5).all()):
+            failures.append(f"_q8_vec {name}: a scale is no power of two")
+        # the cache's own noise: the round trip against the values
+        err = lm_layers._q8_vec_decode(qh, sh, torch.float32) - x.cpu()
+        xf = x.cpu().float()
+        q8[name] = {"shape": list(x.shape), "dtype": str(x.dtype),
+                    "scale_exponents": [int(torch.log2(sh).min()),
+                                        int(torch.log2(sh).max())],
+                    "roundtrip_rel_rms": float(err.norm() / xf.norm()),
+                    "roundtrip_max_over_maxabs": float(
+                        (err.abs().amax(-1) / xf.abs().amax(-1)).max()),
+                    "equal": True}
+    out["q8_vec_card_vs_cpu"] = q8
+    del kv
+    # prefill + decode against forward, and a per-lane step
+    toks = rng.integers(0, cfg.vocab_size, LM_CHECK_TOKENS).astype(np.int32)
+    fwd = eng8.forward(toks)[:, -1].float()
+    state = eng8.init_decode_state(*LM_CHECK_TOKENS)
+    _, state = eng8.prefill(toks[:, :-1], state)
+    lanes = {"layers": {k: v.clone() for k, v in state["layers"].items()},
+             "index": torch.full((LM_CHECK_TOKENS[0],), state["index"],
+                                 dtype=torch.long, device=dev)}
+    dec, _ = eng8.decode_step(toks[:, -1], state)
+    dec_lanes, _ = eng8.decode_step(toks[:, -1], lanes)
+    out["decode_vs_forward"] = {
+        "rel": float((dec.float() - fwd).abs().max() / fwd.abs().max()),
+        "argmax_equal": bool(torch.equal(dec.argmax(-1), fwd.argmax(-1))),
+        "per_lane_equal": bool(torch.equal(dec, dec_lanes)),
+        "limit": LM_KV8_DECODE_REL}
+    dvf = out["decode_vs_forward"]
+    if dvf["rel"] >= LM_KV8_DECODE_REL or not dvf["argmax_equal"] or \
+            not dvf["per_lane_equal"]:
+        failures.append(f"int8 cache: prefill + decode against forward: "
+                        f"{dvf}")
+    del fwd, state, lanes, dec, dec_lanes
+    # the int8 cache against the float one, teacher-forced with the float
+    # cache's greedy tokens
+    s8 = eng8.init_decode_state(LM_SLOTS, 256)
+    sf = eng.init_decode_state(LM_SLOTS, 256)
+    l8, s8 = eng8.prefill(ptoks, s8)
+    lf, sf = eng.prefill(ptoks, sf)
+    rels, agree = [], []
+    for _ in range(LM_KV8_STEPS + 1):
+        lff = lf.float()
+        rels.append(float((l8.float() - lff).abs().max() / lff.abs().max()))
+        agree.append((l8.argmax(-1) == lf.argmax(-1)).float().mean().item())
+        cur = lf.argmax(-1)
+        l8, s8 = eng8.decode_step(cur, s8)
+        lf, sf = eng.decode_step(cur, sf)
+    del s8, sf, l8, lf
+    out["int8_vs_float_cache"] = {
+        "prompts": list(ptoks.shape), "steps": LM_KV8_STEPS,
+        "prefill_rel": rels[0], "max_rel": max(rels),
+        "rel_by_step": rels, "argmax_agree": float(np.mean(agree)),
+        "limits": [LM_KV8_VS_FLOAT_REL, LM_KV8_MIN_ARGMAX]}
+    if max(rels) >= LM_KV8_VS_FLOAT_REL or \
+            np.mean(agree) < LM_KV8_MIN_ARGMAX:
+        failures.append(f"int8 cache against the float cache: "
+                        f"{out['int8_vs_float_cache']}")
+    # free-running: the float cache's scheduler on the same requests
+    # (recorded: greedy decoding carries a first differing token on)
+    fsched = cellmod.LMScheduler(eng, slots=LM_SLOTS, max_len=256)
+    for r in requests:
+        fsched.submit(r["id"], r["prompt"], r["gen"])
+    fserved = fsched.run()
+    del fsched
+
+    def prefix(a, b):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        return n
+
+    out["schedule_vs_float_cache"] = {
+        "requests_equal": sum(served[k] == fserved[k] for k in served),
+        "requests": len(served),
+        "equal_prefix_share": float(np.mean(
+            [prefix(served[k], fserved[k]) / len(fserved[k])
+             for k in served]))}
+    # p50 per prefill and decode step, int8 and float caches in turns
+    times = {}
+    for tag, e in (("float", eng), ("int8", eng8), ("int8_again", eng8),
+                   ("float_again", eng)):
+        times[tag] = time_lm_calls(e, ptoks)[0]
+    out["timed"] = times
+    del eng, eng8
+    gc.collect()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    checks = _rise(checks)
+    out.update(check_launches=checks, failures=failures)
+    emit(out)
+    if failures:
+        raise AssertionError(f"{cfg.name} int8 cache: " + "; ".join(failures))
     return path, checks, expected
 
 
@@ -2560,6 +2853,7 @@ def phase_lm_smoke(dev) -> dict:
         toks = np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, s)).astype(np.int32)
         row = {"model": name, "variant": kw, "plans": {}}
+        costs = {}
         for plan in ("float", "lut", "cuda"):
             eng = runtime.compile_model(
                 cfg, convert.from_numpy_tree(np_tree, dev), backend=plan,
@@ -2582,6 +2876,12 @@ def phase_lm_smoke(dev) -> dict:
             if rose != want:
                 failures.append(f"{name} {plan}: launched {rose}, expected "
                                 f"{want}")
+            # the plan priced the same on the card and on the CPU
+            cost = require_same_cost(f"{name} {kw} {plan}",
+                                     perf.engine_cost(eng, batch=2),
+                                     perf.engine_cost(cpu, batch=2))
+            costs[plan] = {k: cost[k] for k in ("flops", "bytes_moved",
+                                                "matmul_flops")}
             rel = float((dec - ref_last).abs().max() / ref_last.abs().max())
             on_cpu = cpu.forward(toks)
             diff = float((fwd.cpu() - on_cpu).abs().max())
@@ -2605,8 +2905,14 @@ def phase_lm_smoke(dev) -> dict:
                 ok = ok and wrap < LM_REF_DECODE_REL
             if not ok:
                 failures.append(f"{name} {kw} {plan}: {row['plans'][plan]}")
+        row["cost"] = costs
+        if len({c["matmul_flops"] for c in costs.values()}) != 1:
+            failures.append(f"{name} {kw}: the plans' products differ: "
+                            f"{costs}")
         out["configs"].append(row)
+    out["configs"] += smoke_int8_kv(dev, failures)
     out["configs"].append(smoke_encdec(dev, failures))
+    out["configs"].append(smoke_encdec(dev, failures, kv8=True))
     out["failures"] = failures
     emit(out)
     if failures:
@@ -2614,7 +2920,111 @@ def phase_lm_smoke(dev) -> dict:
     return out
 
 
-def smoke_encdec(dev, failures: list) -> dict:
+# the int8 KV cache on the smoke configs: a dense one, a moe one at the
+# drop-free capacity factor, hymba on a prompt within its window and
+# across its ring's wrap.  The card's decode logits against the CPU's on
+# the same plan to the limits of the float-cache rows (LM_SMOKE_*), and
+# the card's decode-vs-forward gap to the CPU's within LM_SMOKE_GAP_ATOL
+# (the gap itself is the int8 cache's, 0.01-0.04 on these configs in the
+# CPU tests, tests/test_torch_kvcache.py)
+SMOKE_INT8 = ("internlm2-1.8b", MOE_NAME, HYMBA_NAME)
+LM_SMOKE_GAP_ATOL = 1e-3
+
+
+def smoke_atol(cpu, plan: str) -> float:
+    """Card against CPU on a smoke plan: 1e-4 on ``float``, two steps of
+    the head's eq-9 input on the integer plans (see LM_SMOKE_*)."""
+    if plan == "float":
+        return LM_SMOKE_FLOAT_ATOL
+    head = quant.resident_values(cpu.params["lm_head"])
+    return LM_SMOKE_CODE_FLIPS * float(head.abs().max()) \
+        * 2.0 ** -cpu.exec_cfg.quant.input_exponent
+
+
+def smoke_int8_kv(dev, failures: list) -> list:
+    """``SMOKE_INT8`` on the int8 KV cache under float, lut and cuda, on
+    the card and on the CPU: forward's last logits, prefill of S - 1 +
+    one decode step (hymba also 20 tokens decoded across its ring's
+    wrap); the caches int8 codes and float32 scales; the cuda plan's
+    launches on the card, none on the CPU."""
+    rows = []
+    for name in SMOKE_INT8:
+        kw = {"capacity_factor": MOE_DROP_FREE} if name == MOE_NAME else {}
+        base = registry.get(name).smoke.with_(**kw)
+        cfg = kv8_config(base)
+        np_tree = seeded_lm_params(base, 0)
+        hybrid = cfg.family == "hybrid"
+        s = cfg.sliding_window if hybrid else 16
+        toks = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, s)).astype(np.int32)
+        row = {"model": name, "variant": {**kw, "quantize_kv_cache": True},
+               "plans": {}}
+        for plan in ("float", "lut", "cuda"):
+            res = []
+            for where in (dev, torch.device("cpu")):
+                e = runtime.compile_model(
+                    cfg, convert.from_numpy_tree(np_tree, where),
+                    backend=plan, device=where,
+                    plain_kernels=where.type == "cpu" and plan == "cuda")
+                before = ops.launch_counts()
+                fwd = e.forward(toks)[:, -1]
+                st = e.init_decode_state(*toks.shape)
+                _, st = e.prefill(toks[:, :-1], st)
+                dec, st = e.decode_step(toks[:, -1], st)
+                kv = st["layers"]["kv"] if hybrid else st["layers"]
+                r = {"fwd": fwd.cpu(), "dec": dec.cpu(),
+                     "leaves": sorted((k, str(v.dtype)) for k, v in
+                                      kv.items())}
+                if hybrid:
+                    r["wrap"], r["wrap_fwd"] = ring_wrap(e, cfg)
+                r["rose"] = _rise(before)
+                if where.type == "cpu":
+                    r["atol"] = smoke_atol(e, plan)
+                res.append(r)
+                del e, st
+            card, cpu = res
+            calls = 3 + (RING_WRAP_TOKENS + 1 if hybrid else 0)
+            want = lm_expected(cfg, calls) if plan == "cuda" else \
+                {k: 0 for k in card["rose"]}
+            if card["rose"] != want or any(cpu["rose"].values()):
+                failures.append(f"{name} int8 cache {plan}: launched "
+                                f"{card['rose']} on the card, {cpu['rose']} "
+                                f"on the cpu, expected {want}")
+            if card["leaves"] != [("k", "torch.int8"),
+                                  ("ks", "torch.float32"),
+                                  ("v", "torch.int8"),
+                                  ("vs", "torch.float32")]:
+                failures.append(f"{name} int8 cache leaves: {card['leaves']}")
+
+            def gap(a, b):
+                return float((a - b).abs().max() / b.abs().max())
+
+            got = {"decode_vs_forward_rel": gap(card["dec"], card["fwd"]),
+                   "cpu_decode_vs_forward_rel": gap(cpu["dec"], cpu["fwd"]),
+                   "card_vs_cpu_max_abs": float(
+                       (card["dec"] - cpu["dec"]).abs().max()),
+                   "card_vs_cpu_atol": cpu["atol"]}
+            ok = got["card_vs_cpu_max_abs"] <= cpu["atol"] and \
+                abs(got["decode_vs_forward_rel"]
+                    - got["cpu_decode_vs_forward_rel"]) < LM_SMOKE_GAP_ATOL
+            if hybrid:
+                got.update(
+                    ring_wrap_rel=gap(card["wrap"], card["wrap_fwd"]),
+                    cpu_ring_wrap_rel=gap(cpu["wrap"], cpu["wrap_fwd"]),
+                    ring_wrap_card_vs_cpu_max_abs=float(
+                        (card["wrap"] - cpu["wrap"]).abs().max()))
+                ok = ok and got["ring_wrap_card_vs_cpu_max_abs"] <= \
+                    cpu["atol"] and abs(got["ring_wrap_rel"]
+                                        - got["cpu_ring_wrap_rel"]) \
+                    < LM_SMOKE_GAP_ATOL
+            row["plans"][plan] = got
+            if not ok:
+                failures.append(f"{name} int8 cache {plan}: {got}")
+        rows.append(row)
+    return rows
+
+
+def smoke_encdec(dev, failures: list, kv8: bool = False) -> dict:
     """whisper-large-v3's smoke config at module level under the float,
     lut and cuda plans' exec_cfg, on the card and on the CPU (the cuda
     plan there through its kernels' plain versions): decode == forward
@@ -2623,13 +3033,21 @@ def smoke_encdec(dev, failures: list) -> dict:
     lut and cuda: no LUT bin moves between the card and the host on
     these seeded inputs, so a moved bin is a fault), and the cuda
     plan's launches (two encoder passes — ``encode`` and the prefill's —,
-    two decoder passes and a decode step)."""
+    two decoder passes and a decode step).  With ``kv8`` the decoder's
+    self cache is int8 (the cross caches stay float): the decode step's
+    logits too are held card against CPU, and the decode's gap to
+    ``decode_train`` (the int8 cache's, not 1e-3) to the CPU's within
+    ``LM_SMOKE_GAP_ATOL``."""
     cfg = registry.get(WHISPER_NAME).smoke
     np_tree = seeded_lm_params(cfg, 0)
+    if kv8:
+        cfg = kv8_config(cfg)
     rng = np.random.default_rng(1)
     frames = rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int64)
-    row = {"model": WHISPER_NAME, "variant": {}, "plans": {}}
+    row = {"model": WHISPER_NAME,
+           "variant": {"quantize_kv_cache": True} if kv8 else {},
+           "plans": {}}
     for plan in ("float", "lut", "cuda"):
         xc = runtime.get_backend(plan).configure(cfg)
         res = []                          # the card's, then the CPU's
@@ -2642,8 +3060,11 @@ def smoke_encdec(dev, failures: list) -> dict:
                 st = encdec.init_decode_state(xc, 2, t.shape[1], device=where)
                 _, st = encdec.prefill(p, f, t[:, :-1], xc, st)
                 dec, _ = encdec.decode_step(p, t[:, -1], xc, st)
+            if kv8 and st["layers"]["kv"]["k"].dtype != torch.int8:
+                failures.append(f"whisper smoke {plan}: the self cache is "
+                                f"{st['layers']['kv']['k'].dtype}")
             res.append((fwd.cpu(), dec.cpu(), _rise(before)))
-        (fwd, dec, rose), (cpu_fwd, _, cpu_rose) = res
+        (fwd, dec, rose), (cpu_fwd, cpu_dec, cpu_rose) = res
         want = whisper_expected(cfg, 2, 1, 0) if plan == "cuda" else \
             {k: 0 for k in rose}
         if rose != want or any(cpu_rose.values()):
@@ -2657,17 +3078,29 @@ def smoke_encdec(dev, failures: list) -> dict:
              "card_vs_cpu_argmax_agree": float(
                  (fwd.argmax(-1) == cpu_fwd.argmax(-1)).float().mean())}
         row["plans"][plan] = r
-        if r["decode_vs_forward_max_abs"] >= WHISPER_REF_DECODE_ATOL or \
-                diff > atol or \
+        if kv8:
+            last, cpu_last = fwd[:, -1], cpu_fwd[:, -1]
+            r.update(decode_vs_forward_rel=float(
+                (dec - last).abs().max() / last.abs().max()),
+                cpu_decode_vs_forward_rel=float(
+                    (cpu_dec - cpu_last).abs().max() / cpu_last.abs().max()),
+                decode_card_vs_cpu_max_abs=float(
+                    (dec - cpu_dec).abs().max()))
+            bad = r["decode_card_vs_cpu_max_abs"] > atol or abs(
+                r["decode_vs_forward_rel"] - r["cpu_decode_vs_forward_rel"]) \
+                >= LM_SMOKE_GAP_ATOL
+        else:
+            bad = r["decode_vs_forward_max_abs"] >= WHISPER_REF_DECODE_ATOL
+        if bad or diff > atol or \
                 r["card_vs_cpu_argmax_agree"] < LM_SMOKE_MIN_ARGMAX:
-            failures.append(f"whisper smoke {plan}: {r}")
+            failures.append(f"whisper smoke {plan} {row['variant']}: {r}")
     return row
 
 
-def ring_wrap_rel(eng, cfg) -> float:
+def ring_wrap(eng, cfg) -> tuple:
     """``RING_WRAP_TOKENS`` tokens decoded one at a time into a fresh
-    state (the ring wraps) against ``forward`` of them: the largest gap
-    over the largest magnitude."""
+    state (the ring wraps), and ``forward`` of them: both logits, float32
+    on the CPU."""
     toks = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, RING_WRAP_TOKENS)).astype(np.int32)
     state = eng.init_decode_state(2, 64)
@@ -2675,9 +3108,14 @@ def ring_wrap_rel(eng, cfg) -> float:
     for t in range(RING_WRAP_TOKENS):
         lg, state = eng.decode_step(toks[:, t], state)
         outs.append(lg)
-    ref = eng.forward(toks).float()
-    return float((torch.stack(outs, 1).float() - ref).abs().max()
-                 / ref.abs().max())
+    return torch.stack(outs, 1).float().cpu(), \
+        eng.forward(toks).float().cpu()
+
+
+def ring_wrap_rel(eng, cfg) -> float:
+    """``ring_wrap``'s largest gap over the forward's largest magnitude."""
+    dec, ref = ring_wrap(eng, cfg)
+    return float((dec - ref).abs().max() / ref.abs().max())
 
 
 MOE_SERVE_ARGS = ["--arch", MOE_NAME, "--backend", "cuda", "--requests",
@@ -2750,7 +3188,7 @@ def route_agreement(fwd_routes, dec_routes, lanes: int) -> dict:
     return {"expert_set_agree": same_set / n, "slot_order_agree": same_order / n}
 
 
-def phase_lm_granite_moe(dev, tmp: str) -> tuple:
+def phase_lm_granite_moe(dev, tmp: str, roof) -> tuple:
     """granite-moe-3b-a800m at full width (32 layers, d 1536, 24 heads / 8
     KV, head_dim 64, 40 experts padded to 48, top-8, expert_d_ff 512,
     vocab 49155, bf16; random weights drawn on the card from the seed)
@@ -2763,9 +3201,10 @@ def phase_lm_granite_moe(dev, tmp: str) -> tuple:
     on every layer's router logits of one 4 x 63 prefill against its plain
     version, that prefill's dropped slots and whether two orders differ
     (recorded); ``cuda`` against ``lut`` (recorded); p50 ms per decode
-    step and per prefill, ATen ops per step, peak GB.  Returns the path's
-    launches (the served run), the launches of the checks, and the
-    path's expected."""
+    step and per prefill, ATen ops per step, peak GB; the forward of the
+    4 x 63 prefill tokens priced by ``perf.engine_cost`` beside its p50
+    against ``roof``.  Returns the path's launches (the served run), the
+    launches of the checks, and the path's expected."""
     cfg = registry.get(MOE_NAME).config
     trace = os.path.join(tmp, "moe_serve.json")
     argv = MOE_SERVE_ARGS + ["--telemetry-out", trace]
@@ -2900,32 +3339,14 @@ def phase_lm_granite_moe(dev, tmp: str) -> tuple:
         "orders_differ": a != b,
         "requests_differing": sum(a[k] != b[k] for k in a)}
     # p50 per decode step and per prefill, 4 slots, and ATen ops per step
-    pre = []
-    for _ in range(5):
-        st = eng.init_decode_state(LM_SLOTS, 256)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, st = eng.prefill(ptoks, st)
-        torch.cuda.synchronize()
-        pre.append((time.perf_counter() - t0) * 1e3)
-    state = st
-    cur = logits.argmax(-1)
-    dsteps = []
-    for _ in range(LM_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, state = eng.decode_step(cur, state)
-        cur = logits.argmax(-1)
-        torch.cuda.synchronize()
-        dsteps.append((time.perf_counter() - t0) * 1e3)
+    timed, cur, state = time_lm_calls(eng, ptoks)
     with CountOps() as counter:
         eng.decode_step(cur, state)
-    del state, st
-    out.update(p50_prefill_ms=statistics.median(pre),
-               prefill_tokens=list(ptoks.shape),
-               p50_decode_step_ms=statistics.median(dsteps),
-               decode_tok_s=LM_SLOTS / (statistics.median(dsteps) / 1e3),
+    del state
+    out.update(timed, prefill_tokens=list(ptoks.shape),
+               decode_tok_s=LM_SLOTS / (timed["p50_decode_step_ms"] / 1e3),
                aten_ops_per_decode_step=counter.n)
+    out["priced_forward"] = price_lm_forward(eng, ptoks, roof, cfg.name)
     # cuda against lut (recorded: the attention's masked renormalisation
     # sets them apart by design)
     fwd = eng.forward(toks)
@@ -3057,7 +3478,7 @@ def require_softmax_equal(seen: list, what: str) -> dict:
             "mask": list(seen[0][1].shape), "equal": True}
 
 
-def phase_lm_recurrent(dev, name: str) -> tuple:
+def phase_lm_recurrent(dev, name: str, roof) -> tuple:
     """A recurrent LM at full width (rwkv6-3b or hymba-1.5b, bf16; random
     weights drawn on the card by the port's ``init_params`` from seed 0)
     served on the ``cuda`` plan as one drain batch (``drain_batch``): 4
@@ -3067,8 +3488,10 @@ def phase_lm_recurrent(dev, name: str) -> tuple:
     forward (``cuda``; ``float``; ``float`` at float32 activations),
     rwkv's per-lane step against the scalar one, state continuity,
     ``cuda`` against ``lut``, p50 ms per decode step and per prefill,
-    ATen ops per step, peak GB.  Returns the path's launches (the drain
-    batch), the launches of the checks, and the path's expected."""
+    ATen ops per step, peak GB; the forward of the 4 x 63 prompts priced
+    by ``perf.engine_cost`` beside its p50 against ``roof``.  Returns the
+    path's launches (the drain batch), the launches of the checks, and the
+    path's expected."""
     t_phase = time.perf_counter()
     cfg = registry.get(name).config
     hybrid = cfg.family == "hybrid"
@@ -3147,6 +3570,7 @@ def phase_lm_recurrent(dev, name: str) -> tuple:
                prefill_tokens=list(prompts.shape),
                aten_ops_per_decode_step=counter.n)
     del st, logits
+    out["priced_forward"] = price_lm_forward(eng, prompts, roof, name)
     # prefill + decode against forward; state continuity
     ctoks = np.random.default_rng(7).integers(
         0, cfg.vocab_size, LM_CHECK_TOKENS).astype(np.int32)
@@ -3630,7 +4054,7 @@ def main() -> None:
     rows = phase_kernels(dev, (tiny, kwt1))
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase_perf(dev, info)
+    roof = phase_perf(dev, info)
     seconds["perf"] = time.perf_counter() - t0
 
     # The main paths.  Every count goes to 0 just before each and is read
@@ -3707,7 +4131,8 @@ def main() -> None:
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_",
                                      dir=build.build_dir()) as tmp:
-        lm_rose, lm_checks, lm_exp = phase_lm_internlm2(dev, tmp)
+        lm_rose, lm_checks, lm_exp, lm_params = phase_lm_internlm2(
+            dev, tmp, roof)
     counted = ops.launch_counts()
     launches["lm"] = {n: counted[n] - lm_checks[n] for n in counted}
     expected["lm"] = lm_exp
@@ -3715,6 +4140,21 @@ def main() -> None:
         raise AssertionError(f"lm launches {launches['lm']} are not those of "
                              f"its served run and flash forward, {lm_rose}")
     seconds["lm_internlm2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the int8-cache path: the same weights and requests served on an int8
+    # KV cache, less the launches of the checks the phase makes after it
+    ops.reset_launch_counts()
+    kv_rose, kv_checks, kv_exp = phase_lm_int8_kv(dev, lm_params)
+    del lm_params
+    counted = ops.launch_counts()
+    launches["lm_int8_kv"] = {n: counted[n] - kv_checks[n] for n in counted}
+    expected["lm_int8_kv"] = kv_exp
+    if launches["lm_int8_kv"] != kv_rose:
+        raise AssertionError(f"int8-cache launches {launches['lm_int8_kv']} "
+                             f"are not those of its served run, {kv_rose}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["lm_int8_kv"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_lm_smoke(dev)
     seconds["lm_dense_smoke"] = time.perf_counter() - t0
@@ -3724,7 +4164,7 @@ def main() -> None:
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_",
                                      dir=build.build_dir()) as tmp:
-        moe_rose, moe_checks, moe_exp = phase_lm_granite_moe(dev, tmp)
+        moe_rose, moe_checks, moe_exp = phase_lm_granite_moe(dev, tmp, roof)
     counted = ops.launch_counts()
     launches["moe"] = {n: counted[n] - moe_checks[n] for n in counted}
     expected["moe"] = moe_exp
@@ -3737,7 +4177,7 @@ def main() -> None:
     for path, name in (("rwkv", RWKV_NAME), ("hybrid", HYMBA_NAME)):
         t0 = time.perf_counter()
         ops.reset_launch_counts()
-        rose, rchecks, rexp = phase_lm_recurrent(dev, name)
+        rose, rchecks, rexp = phase_lm_recurrent(dev, name, roof)
         counted = ops.launch_counts()
         launches[path] = {n: counted[n] - rchecks[n] for n in counted}
         expected[path] = rexp

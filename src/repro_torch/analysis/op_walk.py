@@ -35,6 +35,7 @@ import sys
 from typing import Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -75,7 +76,8 @@ class OpRecord:
     """One recorded ATen op, or one kernel charge (``charge`` is then
     ``(op class, operations, bytes)`` and ``name`` is ``"charge"``).
     ``scalars`` counts the Python numbers among the positional arguments
-    (an element-wise op's scalar operands)."""
+    (an element-wise op's scalar operands); ``einsum`` marks an op that a
+    ``torch.einsum`` call dispatched (one of its pairwise products)."""
 
     name: str
     inputs: tuple
@@ -83,6 +85,7 @@ class OpRecord:
     frames: tuple
     charge: Optional[tuple] = None
     scalars: int = 0
+    einsum: bool = False
 
 
 def _is_repo(filename: str) -> bool:
@@ -115,6 +118,9 @@ def _metas(tree) -> tuple:
                  if isinstance(t, torch.Tensor))
 
 
+_POW_SCALAR = torch.ops.aten.pow.Tensor_Scalar
+
+
 class Recorder(TorchDispatchMode):
     """Appends one :class:`OpRecord` per ATen op while not muted."""
 
@@ -122,16 +128,41 @@ class Recorder(TorchDispatchMode):
         super().__init__()
         self.records: list = []
         self.muted = 0
+        self.einsum = 0          # depth of torch.einsum calls in progress
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self.muted:
+            name = func.overloadpacket.__name__
+            if func is _POW_SCALAR and args[1] == 2:
+                name = "square"         # x.square(): the reference's square
             self.records.append(OpRecord(
-                func.overloadpacket.__name__, _metas((args, kwargs)),
+                name, _metas((args, kwargs)),
                 _metas(out), stack_frames(2),
-                scalars=sum(isinstance(a, (int, float)) for a in args)))
+                scalars=sum(isinstance(a, (int, float)) for a in args),
+                einsum=self.einsum > 0))
         return out
+
+
+class _EinsumDepth(TorchFunctionMode):
+    """Marks the ATen ops a ``torch.einsum`` call dispatches.  The
+    reference's ``jnp.einsum`` takes a contraction of several operands
+    pairwise, each pair one ``dot_general`` even where nothing is summed;
+    PyTorch does such a pair as a ``mul``."""
+
+    def __init__(self, rec: Recorder):
+        super().__init__()
+        self.rec = rec
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is not torch.functional.einsum:
+            return func(*args, **(kwargs or {}))
+        self.rec.einsum += 1
+        try:
+            return func(*args, **(kwargs or {}))
+        finally:
+            self.rec.einsum -= 1
 
 
 # The recorder of the walk in progress, or None.  Kernel wrappers test it
@@ -164,7 +195,7 @@ def record(fn, *args, **kwargs) -> tuple:
     if recorder is not None:
         raise RuntimeError("op_walk.record does not nest")
     rec = Recorder()
-    with torch.no_grad(), rec:
+    with torch.no_grad(), _EinsumDepth(rec), rec:
         recorder = rec
         try:
             out = fn(*args, **kwargs)

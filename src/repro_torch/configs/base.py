@@ -25,7 +25,7 @@ class QuantConfig:
     residual_bits: int = 16       # paper: INT16 intermediates
     softmax_mode: str = "lut"     # "exact" | "lut" | "lut_fixed"
     act_mode: str = "lut"         # LUT GELU / SiLU
-    quantize_kv_cache: bool = False   # int8 KV cache (not ported yet)
+    quantize_kv_cache: bool = False   # int8 KV cache
     per_channel: Optional[bool] = None  # None: registry default (LM-scale
     #                                     families per-channel, kwt scalar)
 

@@ -350,10 +350,14 @@ def _int_grid_matmul(xq: torch.Tensor, ws, k: int, x_bits: int,
     activation axis: in f32 containers while that is exact, in int32
     otherwise."""
     wide = max(w.bits for w in ws)
+
+    def cat(ts):                      # one weight: no copy
+        return ts[0] if len(ts) == 1 else torch.cat(ts, dim=-1)
+
     if k * 2 ** (x_bits - 1) * 2 ** (wide - 1) <= _F32_EXACT:
-        wi = torch.cat([int_container(w) for w in ws], dim=-1)
+        wi = cat([int_container(w) for w in ws])
         return torch.matmul(xq, wi.T if transpose_w else wi)
-    wl = torch.cat([w.int_values() for w in ws], dim=-1)
+    wl = cat([w.int_values() for w in ws])
     return exact_int_matmul(xq.to(torch.int32), wl.T if transpose_w else wl)
 
 

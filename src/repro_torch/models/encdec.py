@@ -258,7 +258,10 @@ def loss_fn(params, batch, cfg):
 
 def init_decode_state(cfg, batch, max_len, device=None):
     """Zero decode state at index 0: self caches of ``max_len`` slots and
-    cross caches of ``enc_seq``, in the model dtype."""
+    cross caches of ``enc_seq``, in the model dtype; under
+    ``cfg.quant.quantize_kv_cache`` the self caches are int8 codes and
+    float32 scales (``layers.init_kv_cache``) and the cross caches stay
+    float, as in the reference."""
     device = resolve_device(device)
     h, dh = cfg.n_heads, cfg.resolved_head_dim
     dt = L._dtype(cfg)

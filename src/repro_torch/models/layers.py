@@ -26,7 +26,14 @@ kept by overwrite.
 ``apply_attention`` and ``apply_mlp`` emit the quantisation-health taps
 of their inputs (``telemetry.taps``; a no-op without a collector).
 
-Not ported yet (ROADMAP queue A item 3): the int8 KV cache; it raises.
+The int8 KV cache (``cfg.quant.quantize_kv_cache``, the paper's eq 9 on
+the cache): each (token, KV head) vector is stored as int8 codes and one
+power-of-two float32 scale (``_q8_vec``), written in place like the float
+cache, and attention runs over the decoded values (``_q8_vec_decode``) in
+the activations' dtype.  The scale's exponent is computed exactly from
+the float's bits (ROADMAP C12: XLA:CPU's ``log2`` / ``exp2`` are not
+exact at some powers of two, so the reference can pick one exponent
+higher there).
 """
 
 from __future__ import annotations
@@ -37,9 +44,6 @@ import torch
 from repro_torch.core import approx
 from repro_torch.core import quant
 from repro_torch.telemetry import taps as _health
-
-_LATER = "is not ported yet: it waits for ROADMAP queue A item 3"
-
 
 def executes_int(w, eq: str, cfg) -> bool:
     """Whether ``linear`` multiplies the stored integers of ``w`` (an
@@ -306,14 +310,13 @@ def _use_flash_lut(cfg, kv_len_valid) -> bool:
 
 def apply_attention(p, x, cfg, *, positions=None, cache=None,
                     cache_index=None, kv_len_valid=None, causal=True):
-    """Returns (out, new_cache).  ``cache`` = dict(k=[B,S,KV,D], v=...) or
+    """Returns (out, new_cache).  ``cache`` = dict(k=[B,S,KV,D], v=...)
+    (the int8 cache: ``k`` / ``v`` codes and ``ks`` / ``vs`` scales) or
     None; with a cache, this call's keys and values are written into it
     in place at ``cache_index`` (an int, or a per-lane [B] tensor for a
     one-token decode) and the same dict is returned.  A ring cache (the
     hybrid family's sliding window) passes ``causal=False`` and an explicit
     ``kv_len_valid``: every live slot is a valid past key."""
-    if cache is not None and _kv_quantized(cfg):
-        raise NotImplementedError(f"the int8 KV cache {_LATER}")
     if cfg.attn_impl not in ("xla", "flash_lut"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     b, sq, d = x.shape
@@ -363,22 +366,15 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
         new_cache = None
     else:
         idx = cache_index
-        ck, cv = cache["k"], cache["v"]
-        if _per_lane(idx):                   # per-lane decode (cell)
-            if sq != 1:
-                raise ValueError("a per-lane cache_index is a one-token "
-                                 "decode path")
-            lanes = torch.arange(b, device=ck.device)
-            li = idx.to(ck.device).long()
-            ck.index_put_((lanes, li), k[:, 0].to(ck.dtype))
-            cv.index_put_((lanes, li), v[:, 0].to(cv.dtype))
+        if _kv_quantized(cfg):
+            (kq, ks), (vq, vs) = _q8_vec(k), _q8_vec(v)
+            idx = _write_cache(cache, {"k": kq, "ks": ks, "v": vq, "vs": vs},
+                               idx, sq)
+            ck = _q8_vec_decode(cache["k"], cache["ks"], x.dtype)
+            cv = _q8_vec_decode(cache["v"], cache["vs"], x.dtype)
         else:
-            idx = int(idx)
-            # a start that would overrun the cache is clamped, as
-            # lax.dynamic_update_slice clamps it in the reference
-            at = max(0, min(idx, ck.shape[1] - sq))
-            ck[:, at:at + sq] = k
-            cv[:, at:at + sq] = v
+            idx = _write_cache(cache, {"k": k, "v": v}, idx, sq)
+            ck, cv = cache["k"], cache["v"]
         valid = (idx + sq) if kv_len_valid is None else kv_len_valid
         # a write of more than Q_CHUNK tokens is the prefill of a fresh
         # cache (index 0): a start of 0 lets sdpa chunk the queries
@@ -390,6 +386,29 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
     if "bo" in p:
         out = out + p["bo"]
     return out.to(x.dtype), new_cache
+
+
+def _write_cache(cache, new, idx, sq):
+    """Write this call's leaves ``new`` (``[B, sq, ...]`` each) into the
+    cache's tensors of the same keys, in place, at ``idx``: an int (a
+    start that would overrun the cache is clamped, as
+    ``lax.dynamic_update_slice`` clamps it in the reference) or a per-lane
+    ``[B]`` tensor (one token).  Returns ``idx`` (an int where it was one)."""
+    if _per_lane(idx):                       # per-lane decode (cell)
+        if sq != 1:
+            raise ValueError("a per-lane cache_index is a one-token "
+                             "decode path")
+        dev = cache["k"].device
+        lanes = torch.arange(idx.shape[0], device=dev)
+        li = idx.to(dev).long()
+        for key, t in new.items():
+            cache[key].index_put_((lanes, li), t[:, 0].to(cache[key].dtype))
+        return idx
+    idx = int(idx)
+    at = max(0, min(idx, cache["k"].shape[1] - sq))
+    for key, t in new.items():
+        cache[key][:, at:at + sq] = t
+    return idx
 
 
 def _flash(q, k, v, cfg, causal):
@@ -415,14 +434,47 @@ def _flash(q, k, v, cfg, causal):
 
 
 def init_kv_cache(cfg, batch, max_len, dtype=None, device="cpu"):
-    """Zero float K/V caches [batch, max_len, KV, D] in ``dtype`` (default:
-    the model dtype)."""
-    if _kv_quantized(cfg):
-        raise NotImplementedError(f"the int8 KV cache {_LATER}")
+    """Zero K/V caches [batch, max_len, KV, D]: float in ``dtype``
+    (default: the model dtype), or, with ``cfg.quant.quantize_kv_cache``,
+    int8 codes ``k`` / ``v`` beside float32 scales ``ks`` / ``vs``
+    [batch, max_len, KV] of ones (``dtype`` is then ignored, as in the
+    reference: attention decodes the codes into the activations' dtype)."""
     kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    if _kv_quantized(cfg):
+        codes = (batch, max_len, kv, dh)
+        return {"k": torch.zeros(codes, dtype=torch.int8, device=device),
+                "ks": torch.ones(codes[:3], dtype=torch.float32,
+                                 device=device),
+                "v": torch.zeros(codes, dtype=torch.int8, device=device),
+                "vs": torch.ones(codes[:3], dtype=torch.float32,
+                                 device=device)}
     dt = dtype or _dtype(cfg)
     return {"k": torch.zeros((batch, max_len, kv, dh), dtype=dt, device=device),
             "v": torch.zeros((batch, max_len, kv, dh), dtype=dt, device=device)}
+
+
+def _q8_vec(x):
+    """Per-(token, KV head) power-of-two int8 quantisation of [B,S,KV,D]:
+    codes ``round(x / 2^e)`` (half to even) clipped to ±127 and float32
+    scales ``2^e``, ``e = ceil(log2(max(maxabs, 1e-30) / 127))``.
+
+    ``e`` is read off the float's bits: ``y = maxabs / 127`` is normal
+    (at least 1e-30 / 127), so ``ceil(log2 y)`` is its unbiased exponent,
+    plus one unless its mantissa is zero (``y`` a power of two); the scale
+    is built from the bits as well.  Both are exact on every device
+    (ROADMAP C12)."""
+    xf = _f32(x)
+    y = xf.abs().amax(dim=-1).clamp(min=1e-30) / 127.0
+    bits = y.view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127 + ((bits & 0x7FFFFF) != 0).to(torch.int32)
+    scale = ((e + 127) << 23).view(torch.float32)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _q8_vec_decode(q, scale, dt):
+    """Codes times their scales, in ``dt``."""
+    return (q.to(torch.float32) * scale[..., None]).to(dt)
 
 
 # ---------------------------------------------------------------------------

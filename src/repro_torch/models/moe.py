@@ -114,7 +114,10 @@ def _slots(idx, *, e_lo: int, e_n: int, C: int):
     fid = idx.reshape(-1)
     mine = (fid >= e_lo) & (fid < e_lo + e_n)
     lid = (fid - e_lo).clamp(0, e_n - 1)
-    onehot = torch.nn.functional.one_hot(lid, e_n) * mine[:, None]
+    # jax.nn.one_hot's comparison: F.one_hot checks its indices (a min and
+    # a max) on the CPU only, so the card would run other ops than the host
+    hot = lid[:, None] == torch.arange(e_n, device=lid.device)
+    onehot = (hot & mine[:, None]).long()
     pos = (onehot.cumsum(dim=0) - 1).gather(1, lid[:, None])[:, 0]
     return lid, pos, mine & (pos < C)
 

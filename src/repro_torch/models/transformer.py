@@ -13,11 +13,14 @@ a Python loop over the same stacked leaves (``blocks``: every leaf
 Decode state: ``{"layers": ..., "index": i}``, every ``layers`` leaf
 stacked ``[n_layers, B, ...]``:
 
-  dense/moe : KV caches ``{"k": [L,B,S,KV,Dh], "v": ...}``
+  dense/moe : KV caches ``{"k": [L,B,S,KV,Dh], "v": ...}`` (the int8
+              cache, ``cfg.quant.quantize_kv_cache``: ``k`` / ``v`` int8
+              codes beside float32 scales ``ks`` / ``vs`` [L,B,S,KV])
   rwkv      : recurrences ``{"tmix": {"S": [L,B,H,Dk,Dv], "x_prev":
               [L,B,1,D]}, "cmix": {"x_prev": ...}}``
   hybrid    : ``{"mamba": {"h": [L,B,D,N], "conv": [L,B,K-1,D]}, "kv":``
-              a ring KV cache of ``min(max_len, W)`` slots ``}``
+              a ring KV cache of ``min(max_len, W)`` slots (int8 as
+              above under the flag) ``}``
 
 ``index`` is an int (every lane at one depth) or, for dense, moe and
 rwkv, a per-lane ``[B]`` tensor (the ``cell.scheduler`` continuous-
@@ -150,8 +153,9 @@ def _fresh_state(cfg, batch, device):
 
 def _write_state(dst, src):
     """Copy a layer's new recurrent state into its slices of the stacked
-    state; a tensor the layer wrote in place (the ring KV cache) is
-    skipped.  No cast: each new tensor has its slot's dtype."""
+    state; a tensor the layer wrote in place (the ring KV cache, float or
+    int8 codes and scales) is skipped.  No cast: each new tensor has its
+    slot's dtype."""
     for key, new in src.items():
         old = dst[key]
         if isinstance(new, dict):
@@ -243,7 +247,10 @@ def kv_dtype(params, cfg) -> torch.dtype:
 def init_decode_state(cfg, batch, max_len, device=None, dtype=None):
     """Zero decode state at index 0: KV caches of ``max_len`` slots in
     ``dtype`` (default: the model dtype; ``kv_dtype`` gives the one a plan
-    computes in); rwkv's recurrences (S float32, the token-shift tails in
+    computes in), or int8 codes and float32 scales under
+    ``cfg.quant.quantize_kv_cache`` (``dtype`` then ignored, as in the
+    reference: attention decodes them into the activations' dtype);
+    rwkv's recurrences (S float32, the token-shift tails in
     the model dtype); hybrid's mamba state (h float32, the conv tail in
     ``dtype``) beside a ring KV cache of ``min(max_len, sliding_window)``
     slots in ``dtype``."""

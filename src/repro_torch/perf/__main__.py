@@ -1,6 +1,8 @@
 """CLI: cost tables, device calibration, and the bench regression gate.
 
     python -m repro_torch.perf cost --arch kwt-tiny --backends cuda [--mcu]
+    python -m repro_torch.perf cost --arch internlm2-1.8b --smoke \
+        --backends lut cuda --device cpu
     python -m repro_torch.perf calibrate [--reps 5]
     python -m repro_torch.perf regress [--history BENCH_torch_history.jsonl]
     python -m repro_torch.perf regress --selftest
@@ -30,11 +32,13 @@ def _cmd_cost(args) -> int:
     from repro_torch import perf, runtime
     from repro_torch.configs import registry
     from repro_torch.device import resolve_device
-    from repro_torch.models import kwt
+    from repro_torch.launch import steps
 
     dev = resolve_device(args.device)
-    cfg = registry.get(args.arch).config
-    params = kwt.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    entry = registry.get(args.arch)
+    cfg = entry.smoke if args.smoke else entry.config
+    params = steps.model_module(cfg).init_params(
+        cfg, torch.Generator().manual_seed(0), dev)
     machine = perf.PAPER_MCU if args.mcu else perf.host_machine(device=dev)
     for backend in args.backends:
         eng = runtime.compile_model(cfg, params, backend=backend,
@@ -110,6 +114,8 @@ def main(argv=None) -> int:
     c.add_argument("--arch", default="kwt-tiny")
     c.add_argument("--backends", nargs="+", default=["cuda"])
     c.add_argument("--batch", type=int, default=1)
+    c.add_argument("--smoke", action="store_true",
+                   help="use the arch's smoke config")
     c.add_argument("--mcu", action="store_true",
                    help="price on the paper's RV32 MCU model instead of "
                         "the device's calibrated envelope")

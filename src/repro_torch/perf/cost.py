@@ -8,11 +8,14 @@ once under the op recorder (:mod:`repro_torch.analysis.op_walk`) and
 accumulates, per recorded op,
 
 * **flops** — 2*M*N*K for ``mm``/``bmm``/``addmm``/``baddbmm``/
-  ``_int_mm`` (``einsum`` is seen through the ops it dispatches to),
+  ``_int_mm`` (``einsum`` is seen through the ops it dispatches to; a
+  pair of its operands that sums no index, a ``mul`` here, is priced as
+  the reference's ``dot_general`` of depth 1: 2 per output element),
   output size for element-wise math, input size for reductions,
-  ``5*n*log2(n)`` per row for ``_fft_r2c``; layout ops (view, reshape,
-  permute, expand, slice, a ``clone`` of a view, a same-dtype
-  ``_to_copy``) and allocations are free, and are not counted in a
+  ``5*n*log2(n)`` per row for ``_fft_r2c``, none for ``square`` (the
+  reference prices its ``square`` primitive as traffic only); layout
+  ops (view, reshape, permute, expand, slice, a ``clone`` of a view, a
+  same-dtype ``_to_copy``) and allocations are free, and are not counted in a
   line's ``eqns`` (a cached constant made on the first walk only would
   otherwise change the count);
 * **bytes moved** — operand + result buffer bytes of every other op (a
@@ -99,17 +102,20 @@ def attention_charge(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 # op class by recorded frame function name (innermost frame wins)
 _OP_BY_FUNC = {
-    "softmax": ("softmax_exact", "softmax_lut", "masked_softmax", "softmax",
-                "_pre_shift", "lut_softmax", "_softmax_kernel"),
-    "gelu": ("gelu_exact", "gelu_lut", "gelu", "lut_gelu", "_gelu_kernel",
-             "activation"),
-    "norm": ("apply_norm",),
+    "softmax": ("softmax_exact", "softmax_lut", "fixed_softmax",
+                "masked_softmax", "softmax", "_pre_shift", "lut_softmax",
+                "_softmax_kernel"),
+    "gelu": ("gelu_exact", "gelu_lut", "gelu", "lut_gelu", "silu",
+             "silu_exact", "sigmoid_lut", "softplus", "sqrelu",
+             "_gelu_kernel", "activation"),
+    "norm": ("apply_norm", "_rms"),
     "fft": ("_frame_features", "mfcc"),
     # integer-execution epilogue/prologue work (quant.int_exec_einsum):
-    # activation quantise, container moves, per-channel requant —
-    # everything around the integer GEMM itself (the product still
-    # classifies as matmul by op fallback)
-    "requant": ("quantize_act", "requant", "int_container"),
+    # activation quantise, container moves, per-channel requant, row
+    # gather-descale — everything around the integer GEMM itself (the
+    # product still classifies as matmul by op fallback)
+    "requant": ("quantize_act", "requant", "int_container",
+                "gather_descale"),
     # the reference's unrolled multiply-add chain has no counterpart: the
     # port's integer products are always one product
     "matmul": (),
@@ -157,7 +163,7 @@ _ELEMENTWISE = frozenset({
     "add", "sub", "rsub", "mul", "div", "remainder", "fmod", "maximum",
     "minimum", "neg", "abs", "sign", "exp", "exp2", "expm1", "log",
     "log1p", "log2", "tanh", "sin", "cos", "erf", "erfc", "erfinv", "rsqrt",
-    "sqrt", "reciprocal", "sigmoid", "pow", "square", "floor", "ceil",
+    "sqrt", "reciprocal", "sigmoid", "pow", "floor", "ceil",
     "round", "trunc", "frac", "clamp", "clamp_min", "clamp_max", "where",
     "masked_fill", "lerp", "addcmul", "addcdiv", "floor_divide",
     "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
@@ -181,9 +187,13 @@ _REDUCTIONS = frozenset({
 # reference's equations: jnp.mean = reduce_sum + div; jnp.var = the mean,
 # sub, square, reduce_sum, div and its ddof guard; jax.nn.softmax =
 # reduce_max, max, sub, exp, reduce_sum, div; jax.nn.gelu = mul, neg,
-# mul, erfc, mul, copy; layers.apply_norm = mean, var, sub, add, rsqrt
-# and three products / sums.
+# mul, erfc, mul, copy; jax.nn.silu = logistic, mul; jax.nn.softplus =
+# logaddexp(x, 0): abs, neg, exp, log1p, max, two adds, sub, ne, select
+# (three of them against a scalar); layers.apply_norm =
+# mean, var, sub, add, rsqrt and three products / sums.
 _COMPOSITE = {                  # name: ((a, b, c) flops, (a, b, c) bytes)
+    "silu": ((2, 0, 0), (20, 0, 0)),
+    "softplus": ((10, 0, 0), (90, 0, 12)),
     "mean": ((1, 1, 0), (4, 12, 4)),
     "var": ((3, 3, 2), (24, 40, 46)),
     "var_mean": ((4, 4, 2), (28, 52, 50)),
@@ -202,6 +212,13 @@ _TAKE_INDEX_BYTES = (5 + 8 + 13 + 4, 8)     # per index element, constant
 def _base(name: str) -> str:
     return name[:-1] if name.endswith("_") and not name.endswith("__") \
         else name
+
+
+def _einsum_product(rec) -> bool:
+    """A pair of a ``torch.einsum`` contraction that sums no index: the
+    reference's ``jnp.einsum`` makes it a ``dot_general`` (a product of
+    depth 1), PyTorch a ``mul``."""
+    return rec.einsum and _base(rec.name) == "mul"
 
 
 def _rows(rec) -> int:
@@ -226,6 +243,8 @@ def op_flops(rec) -> float:
         # baddbmm carry the added term first): [.., M, K] @ [.., K, N]
         k = int(rec.inputs[-2].shape[-1])
         return 2.0 * rec.outputs[0].numel * k
+    if _einsum_product(rec):               # a dot_general summing nothing
+        return 2.0 * rec.outputs[0].numel
     if name == "_fft_r2c":
         x = rec.inputs[0]
         n = int(x.shape[-1])
@@ -307,7 +326,8 @@ def classify(rec, default_stage: str) -> tuple[str, str]:
         if rec.charge is not None:
             op = rec.charge[0]
         else:
-            op = "matmul" if _base(rec.name) in _MATMUL_OPS else "other"
+            op = "matmul" if _base(rec.name) in _MATMUL_OPS \
+                or _einsum_product(rec) else "other"
     return stage or default_stage, op
 
 
@@ -497,8 +517,12 @@ def engine_cost(engine, x=None, batch: int = 1) -> CostReport:
     Covers everything ``Engine.forward`` executes: the unpack of
     non-executing integer-resident plans (stage ``unpack``) plus the
     model — KWT walked as its ``embed_frames``/``encode_window``
-    factorisation so the stage split matches the telemetry span names.
-    Inputs are zeros on the engine's device.
+    factorisation so the stage split matches the telemetry span names;
+    the LM families (dense, moe, rwkv, hybrid) as one ``encode`` stage
+    of their ``forward`` on ``x`` (default: ``analysis.example_input``,
+    ``[batch, 8]`` tokens).  KWT's inputs are zeros on the engine's
+    device.  The encdec family raises ``TypeError`` (ROADMAP C11), as
+    ``Engine.forward`` does.
     """
     from repro_torch import analysis
 
@@ -511,9 +535,13 @@ def engine_cost(engine, x=None, batch: int = 1) -> CostReport:
         rep.merge(up)
     lp = _live_params(engine)
     if cfg.family != "kwt":
-        raise NotImplementedError(
-            f"pricing a family={cfg.family!r} plan is not ported yet: it "
-            "waits for ROADMAP queue A item 3 (perf pricing of LM plans)")
+        # engine_cost prices Engine.forward, which the encdec family does
+        # not run (ROADMAP C11): its refusal, in its words
+        engine._refuse_encdec("forward")
+        rep.merge(program_cost(
+            lambda p, xx: engine._mod.forward(p, xx, cfg),
+            lp, x, stage="encode"))
+        return rep
     f, t = cfg.input_dim
     b = x.shape[0]
     frames = torch.zeros((b, t, f), dtype=torch.float32, device=engine.device)

@@ -240,7 +240,9 @@ class Engine:
         caches (for hybrid a ring of ``min(max_len, sliding_window)``
         slots) in the dtype the plan computes keys and values in
         (``kv_dtype``: float32 on the integer plans, whose blocks are a
-        float32 view), and the recurrences of rwkv and hybrid."""
+        float32 view; int8 codes and float32 scales whatever the plan
+        under ``cfg.quant.quantize_kv_cache``), and the recurrences of
+        rwkv and hybrid."""
         self._require_lm("init_decode_state")
         self._refuse_encdec("init_decode_state")
         return self._mod.init_decode_state(

@@ -375,19 +375,32 @@ def test_per_lane_cache_write_refuses_several_tokens():
                            cache=cache, cache_index=torch.tensor([0, 1]))
 
 
-def test_later_layouts_raise_and_name_the_item():
+def test_int8_kv_cache_is_int8_and_written_in_place():
+    """The int8 KV cache (tests/test_torch_kvcache.py holds it against the
+    reference): codes and scales in the caller's tensors, the layer's
+    output within the quantisation error of the float cache's."""
     _, tc = _cfgs()
     tp = convert.from_numpy_tree(_attn_params(tc), "cpu")
-    x = torch.zeros(1, 2, tc.d_model)
-    # the sliding window came with the hybrid family
-    # (tests/test_torch_hybrid.py); the int8 KV cache stays later
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, (1, 3, tc.d_model)).astype(np.float32))
     from repro_torch.configs.base import QuantConfig
     kvq = tc.with_(quant=QuantConfig(quantize_kv_cache=True))
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tL.init_kv_cache(kvq, 1, 4)
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tL.apply_attention(tp, x, kvq, cache=tL.init_kv_cache(tc, 1, 4),
-                           cache_index=0)
+    cache = tL.init_kv_cache(kvq, 1, 4, dtype=torch.bfloat16)
+    assert {k: v.dtype for k, v in cache.items()} == {
+        "k": torch.int8, "ks": torch.float32, "v": torch.int8,
+        "vs": torch.float32}
+    k0 = cache["k"]
+    out, got = tL.apply_attention(tp, x, kvq, positions=torch.arange(3),
+                                  cache=cache, cache_index=0)
+    assert got is cache and cache["k"] is k0
+    # each written vector's largest code is above half the int8 range
+    top = cache["k"][:, :3].abs().amax(-1)
+    assert int(top.min()) >= 64 and int(top.max()) <= 127
+    assert float(cache["ks"][:, 3:].min()) == 1.0       # unwritten slot
+    want, _ = tL.apply_attention(tp, x, tc, positions=torch.arange(3),
+                                 cache=tL.init_kv_cache(tc, 1, 4),
+                                 cache_index=0)
+    assert float((out - want).abs().max()) < 0.05 * float(want.abs().max())
 
 
 # ---------------------------------------------------------------------------

@@ -393,10 +393,19 @@ def test_decode_gap_tool_takes_the_smoke_plans_apart(capsys):
     assert [r["rel"] for r in rows] == [0.0] * 11
 
 
-def test_lm_plan_pricing_raises_and_names_its_item():
-    """``perf.engine_cost`` prices KWT plans; an LM plan's pricing waits."""
+def test_lm_plan_pricing_walks_the_forward():
+    """``perf.engine_cost`` prices an LM plan as one ``encode`` stage of
+    its forward (tests/test_torch_perf.py holds it against the
+    reference's): the products of 8 tokens, the softmax and the head's
+    requant among its lines, and no launch counted by the walk."""
     from repro_torch import perf
     _, tcfg, _, tp = _setup("internlm2-1.8b")
     eng = _compile(tcfg, tp, "lut")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        perf.engine_cost(eng)
+    tops.reset_launch_counts()
+    rep = perf.engine_cost(eng)
+    assert set(rep.by_stage()) == {"encode"}
+    assert {"matmul", "softmax", "requant", "norm"} <= \
+        {op for _, op in rep.lines}
+    assert rep.matmul_flops == perf.engine_cost(
+        _compile(tcfg, tp, "float")).matmul_flops > 0
+    assert tops.launch_counts() == {k: 0 for k in tops.launch_counts()}

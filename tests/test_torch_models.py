@@ -237,17 +237,32 @@ def test_init_params_layout_matches_reference_and_device_rule():
             tkwt.init_params(tcfg, torch.Generator().manual_seed(0))
 
 
-def test_later_slices_raise_not_implemented():
-    """RMSNorm, gated MLPs, RoPE and the float KV cache came with the dense
-    LM slice (tests/test_torch_lm_layers.py), the moe family with its own
-    (tests/test_torch_moe.py), the sliding window and the rwkv family with
-    theirs (tests/test_torch_hybrid.py, tests/test_torch_rwkv.py); what
-    stays later: the int8 KV cache."""
+def test_kwt_attention_over_an_int8_kv_cache_matches_reference():
+    """The int8 KV cache (tests/test_torch_kvcache.py for the LMs) under
+    KWT-Tiny's biased, rope-less attention: a bidirectional pass of the 27
+    frames written into the cache at index 0, output and codes and scales
+    against the reference's."""
+    from repro.configs.base import QuantConfig as JQuant
     from repro_torch.configs.base import QuantConfig
-    tcfg = tregistry.get("kwt-tiny").config
-    x = torch.zeros(1, 27, 12)
-    kvq = tcfg.with_(quant=QuantConfig(quantize_kv_cache=True))
-    with pytest.raises(NotImplementedError):
-        tL.init_kv_cache(kvq, 1, 4)
-    with pytest.raises(NotImplementedError):
-        tL.apply_attention({}, x, kvq, cache={})
+    jcfg = jregistry.get("kwt-tiny").config.with_(
+        quant=JQuant(quantize_kv_cache=True))
+    tcfg = tregistry.get("kwt-tiny").config.with_(
+        quant=QuantConfig(quantize_kv_cache=True))
+    shapes = jL.attention_params(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(3)
+    p = {k: rng.normal(0, 0.3, v.shape).astype(np.float32)
+         for k, v in shapes.items()}
+    x = rng.normal(0, 1, (2, 27, tcfg.d_model)).astype(np.float32)
+    jcache = jL.init_kv_cache(jcfg, 2, 27)
+    tcache = tL.init_kv_cache(tcfg, 2, 27)
+    assert tcache["k"].dtype == torch.int8 and tcache["ks"].shape == (2, 27, 1)
+    jo, jcache = jL.apply_attention(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x), jcfg,
+        positions=jnp.arange(27), cache=jcache, cache_index=0, causal=False)
+    to, out_cache = tL.apply_attention(
+        convert.from_numpy_tree(p, "cpu"), torch.from_numpy(x), tcfg,
+        cache=tcache, cache_index=0, causal=False)
+    assert out_cache is tcache
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    for key in ("k", "ks", "v", "vs"):
+        assert np.array_equal(tcache[key].numpy(), np.asarray(jcache[key]))

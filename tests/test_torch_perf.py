@@ -29,6 +29,18 @@ reference's jaxprs):
 * Stream-hop stage weights on the paper's MCU: atol 0.02.  Measured max
   0.004 (featurise; the port frames audio with a strided view where the
   reference gathers).
+
+The LM plans (internlm2, granite-moe, rwkv6, hymba smoke configs, batch 2
+of the default 8 tokens, ``float`` / ``lut`` / ``lut_resident``) are held
+to the same terms.  Measured: ``matmul_flops`` and the keys exact; FLOPs
+per line at most 0.057 apart (the fixed-point masked softmax: the port
+takes its clips as one ``clamp``); bytes at most 0.218 (granite-moe's
+``other``: the dispatch's one ``index_put_`` and its one-hot positions
+move more than the reference's scatter), 0.132 on hymba's ``other`` and
+0.16 on the float softmax (the port's one ``_softmax``).  The
+reference's frames of a cached trace (``jnp.clip`` is jitted) are its
+first caller's, so an equation's class depends on what was priced before
+it in the process; its caches are cleared before each LM pricing.
 """
 
 import json
@@ -73,6 +85,10 @@ BYTES_RTOL = 0.25
 WEIGHTS_ATOL = 0.02
 
 MODELS = {"kwt-tiny": False, "kwt-1": True}     # name -> use the smoke config
+LM_MODELS = ["internlm2-1.8b", "granite-moe-3b-a800m", "rwkv6-3b",
+             "hymba-1.5b"]
+LM_PLANS = ["float", "lut", "lut_resident"]
+LM_BATCH = 2
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -158,6 +174,74 @@ def _analytic_matmul_flops(cfg, batch):
                     + 2 * d * cfg.n_classes)
 
 
+def analytic_lm_matmul_flops(cfg, batch, t):
+    """A dense LM forward's products over ``t`` tokens: Q, K, V and O,
+    the full ``t x t`` score and value products, the gated MLP, the
+    untied head."""
+    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, cfg.d_ff)
+    per_layer = (2 * t * d * h * dh + 2 * 2 * t * d * kv * dh
+                 + 2 * 2 * h * t * t * dh + 2 * t * h * dh * d
+                 + 3 * 2 * t * d * f)
+    return batch * (cfg.n_layers * per_layer + 2 * t * d * cfg.padded_vocab)
+
+
+def _lm_np_params(jcfg, seed=0):
+    """Every leaf random (tests/test_torch_lm_model.py's ``np_params``)."""
+    from repro.models import transformer as JT
+    shapes = jax.eval_shape(lambda k: JT.init_params(jcfg, k),
+                            jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        names = [getattr(k, "key", "") for k in path]
+        per = s.shape[1:] if names[0] == "blocks" else s.shape
+        if "scale" in names:
+            return rng.normal(1.0, 0.1, s.shape).astype(np.float32)
+        scale = 1.0 / np.sqrt(per[0]) if len(per) > 1 else 0.1
+        return rng.normal(0, scale, s.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+_LM = {}
+
+
+def _lm_setup(name):
+    if name not in _LM:
+        jcfg, tcfg = jregistry.get(name).smoke, tregistry.get(name).smoke
+        npp = _lm_np_params(jcfg)
+        _LM[name] = (jcfg, tcfg, npp)
+    return _LM[name]
+
+
+def _lm_engine(name, plan):
+    """The port's plan of an LM smoke config (``cuda``: its plain
+    versions)."""
+    key = ("port", name, plan)
+    if key not in _ENGINES:
+        _, tcfg, npp = _lm_setup(name)
+        backend, kw = PLANS.get(plan, (plan, {}))
+        _ENGINES[key] = trt.compile_model(
+            tcfg, convert.from_numpy_tree(npp, "cpu"), backend=backend,
+            device="cpu", plain_kernels=plan == "cuda", **kw)
+    return _ENGINES[key]
+
+
+def _lm_costs(name, plan):
+    key = ("lm", name, plan)
+    if key not in _COSTS:
+        jcfg, _, npp = _lm_setup(name)
+        backend, kw = PLANS[plan]
+        je = jrt.compile_model(jcfg, jax.tree.map(jnp.asarray, npp),
+                               backend=backend, **kw)
+        jax.clear_caches()          # frames of this pricing's own traces
+        _COSTS[key] = (jperf.engine_cost(je, batch=LM_BATCH),
+                       tperf.engine_cost(_lm_engine(name, plan),
+                                         batch=LM_BATCH))
+    return _COSTS[key]
+
+
 # ---------------------------------------------------------------------------
 # hand counts
 # ---------------------------------------------------------------------------
@@ -225,6 +309,73 @@ def test_lines_within_stated_tolerance(name, plan, batch):
         assert got.flops == pytest.approx(want.flops, rel=FLOPS_RTOL), key
         if not (int_exec and key[1] == "matmul"):
             assert got.bytes == pytest.approx(want.bytes, rel=BYTES_RTOL), key
+
+
+@pytest.mark.parametrize("name", LM_MODELS)
+@pytest.mark.parametrize("plan", LM_PLANS)
+def test_lm_stage_and_op_keys_match_reference(name, plan):
+    """An LM plan is one ``encode`` stage (no unpack: the LM plans never
+    unpack per call), classed as the reference classes it."""
+    ref, rep = _lm_costs(name, plan)
+    assert set(rep.by_stage()) == set(ref.by_stage()) == {"encode"}
+    assert set(rep.lines) == set(ref.lines)
+    assert {"matmul", "norm", "other"} <= {op for _, op in rep.lines}
+
+
+@pytest.mark.parametrize("name", LM_MODELS)
+@pytest.mark.parametrize("plan", LM_PLANS)
+def test_lm_lines_within_stated_tolerance(name, plan):
+    ref, rep = _lm_costs(name, plan)
+    for key, want in ref.lines.items():
+        got = rep.lines[key]
+        assert got.flops == pytest.approx(want.flops, rel=FLOPS_RTOL), key
+        assert got.bytes == pytest.approx(want.bytes, rel=BYTES_RTOL), key
+
+
+@pytest.mark.parametrize("name", LM_MODELS)
+def test_lm_matmul_flops_exact_on_every_plan(name):
+    """The same linear algebra on every plan, the ``cuda`` plan's kernel
+    charges included, and the reference's count; internlm2's against the
+    hand count."""
+    want = _lm_costs(name, "float")[0].matmul_flops
+    for plan in LM_PLANS:
+        ref, rep = _lm_costs(name, plan)
+        assert rep.matmul_flops == ref.matmul_flops == want, plan
+    cuda = tperf.engine_cost(_lm_engine(name, "cuda"), batch=LM_BATCH)
+    assert cuda.matmul_flops == want
+    assert {op for _, op in cuda.lines} >= {"matmul", "requant"}
+    if name == "internlm2-1.8b":
+        assert want == analytic_lm_matmul_flops(_lm_setup(name)[1],
+                                                LM_BATCH, 8) == 2949120
+
+
+def test_lm_pricing_takes_the_callers_tokens():
+    """``x`` sets the priced shape: 4 x 63 tokens, as the card's phases
+    price the full-width forward, against the hand count."""
+    eng = _lm_engine("internlm2-1.8b", "cuda")
+    rep = tperf.engine_cost(eng, x=torch.zeros((4, 63), dtype=torch.int32))
+    assert rep.matmul_flops == analytic_lm_matmul_flops(eng.cfg, 4, 63)
+
+
+def test_whisper_pricing_raises_naming_c11():
+    from repro_torch.launch import steps
+    cfg = tregistry.get("whisper-large-v3").smoke
+    params = steps.model_module(cfg).init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = trt.compile_model(cfg, params, backend="lut", device="cpu")
+    with pytest.raises(TypeError, match="C11") as err:
+        tperf.engine_cost(eng)
+    with pytest.raises(TypeError) as want:
+        eng.forward(torch.zeros((1, 8), dtype=torch.int32))
+    assert str(err.value) == str(want.value)
+
+
+def test_describe_cost_carries_an_lm_plans_totals():
+    eng = _lm_engine("internlm2-1.8b", "lut")
+    rep = tperf.engine_cost(eng, batch=1)
+    out = eng.describe(cost=True)
+    assert f"cost/fwd: {rep.flops:.0f} flops, {rep.bytes:.0f} B moved" in out
+    assert "| encode | matmul |" in out and "est_cycles" in out
 
 
 @pytest.mark.parametrize("feature_ingest", [False, True])
@@ -460,6 +611,16 @@ def test_cli_cost_and_calibrate_on_the_cpu(capsys):
     assert "backend=cuda" in out and "est_cycles" in out
     assert perf_cli.main(["calibrate", "--device", "cpu", "--reps", "1"]) == 0
     assert json.loads(capsys.readouterr().out)["name"] == "measured-cpu"
+
+
+def test_cli_prices_an_lm_smoke_config_on_the_cpu(capsys):
+    assert perf_cli.main(["cost", "--arch", "internlm2-1.8b", "--smoke",
+                          "--backends", "lut", "cuda", "--device",
+                          "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "internlm2-1.8b · backend=lut" in out
+    assert "internlm2-1.8b · backend=cuda" in out
+    assert out.count("| encode | matmul |") == 2
 
 
 def test_cli_regress_exit_codes(tmp_path):

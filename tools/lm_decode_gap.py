@@ -2,7 +2,7 @@
 """Where an LM's prefill + decode_step departs from its forward.
 
     python tools/lm_decode_gap.py [--arch internlm2-1.8b] [--smoke]
-        [--device cpu] [--cpu-twin] [--out FILE]
+        [--device cpu] [--cpu-twin] [--kv8] [--out FILE]
 
 The check of ``chip_smoke.py``'s phases ``lm_internlm2``,
 ``lm_granite_moe``, ``lm_rwkv6`` and ``lm_hymba`` (a prefill of S - 1
@@ -38,8 +38,11 @@ rwkv's sigmoid —, both), each with bfloat16 and with float32 activations
 (``[dtype]``); ``float``.
 ``--cpu-twin`` adds the ``cuda`` plan on the host CPU through its kernels'
 plain versions, from the same weights, and the card against the host for
-forward and for prefill + decode.  One JSON object a plan on standard
-output (and in ``--out``).  Without ``--device`` it takes the card.
+forward and for prefill + decode.  ``--kv8`` runs every plan on the int8
+KV cache (``QuantConfig(quantize_kv_cache=True)``): the plans with both
+LUTs off at float32 activations then show the cache's own share of the
+gap, layer by layer (with the float cache they read ~1e-6).  One JSON
+object a plan on standard output (and in ``--out``).  Without ``--device`` it takes the card.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch import runtime  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.base import QuantConfig  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.tree import tree_map  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
@@ -210,6 +214,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None)
     ap.add_argument("--cpu-twin", action="store_true")
+    ap.add_argument("--kv8", action="store_true",
+                    help="every plan on the int8 KV cache")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
@@ -217,6 +223,8 @@ def main(argv=None) -> int:
     cfg = spec.smoke if args.smoke else spec.config
     if cfg.family == "moe":
         cfg = cfg.with_(capacity_factor=DROP_FREE)
+    if args.kv8:
+        cfg = cfg.with_(quant=QuantConfig(quantize_kv_cache=True))
     out = open(args.out, "w") if args.out else None
 
     def emit(obj):
@@ -239,7 +247,7 @@ def main(argv=None) -> int:
     for name, eng in variants(cuda_eng, lut_eng, float_eng):
         t0 = time.perf_counter()
         emit({"plan": name, "device": str(dev), "model": cfg.name,
-              "n_layers": cfg.n_layers, **gap(eng, toks),
+              "n_layers": cfg.n_layers, "kv8": args.kv8, **gap(eng, toks),
               "seconds": time.perf_counter() - t0})
     del lut_eng, float_eng
     if args.cpu_twin and dev.type != "cpu":
