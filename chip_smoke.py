@@ -9,8 +9,9 @@ at full width, on the float and on the int8 KV cache) and the moe LM
 (granite-moe-3b-a800m at full width) served with continuous batching, the recurrent LMs (rwkv6-3b and hymba-1.5b at
 full width) served as one drain batch, the encoder-decoder
 (whisper-large-v3 at full width) run at module level under the ``cuda``
-plan's ``exec_cfg`` — on the card, and is the quickest proof that the port
-still builds and starts there:
+plan's ``exec_cfg``, and the dense LM trained (internlm2-1.8b at full
+width, float and QAT on the ``cuda`` backend) — on the card, and is the
+quickest proof that the port still builds and starts there:
 
 1. ``device``          the card, its power limit, TF32 off.
 2. ``build``           compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc``
@@ -299,6 +300,34 @@ still builds and starts there:
                        ``encode``, ``prefill`` and ``decode_step``, ATen
                        ops per step, peak GB.
 
+19. ``train_lm``       LM training (ROADMAP A3.4): internlm2-1.8b at full
+                       width (bf16 params drawn on the card from a seed,
+                       remat on as the config sets it) trained by
+                       ``repro_torch.launch.train`` for 8 steps of 8 x 256
+                       tokens, every loss finite (p50 ms per step,
+                       tokens/s, peak memory, ATen ops per step with the
+                       backward and AdamW); at float32 (seed 1, 4 x 256
+                       tokens) one backward's gradient against a central
+                       difference along a seeded direction (``FD_*``) and
+                       the loss ``torch.equal`` and the gradients within
+                       ``REMAT_GRAD_RTOL`` with remat on and off; the same
+                       command under ``--qat --qat-backend cuda`` for 3
+                       steps ending in ``qat.export``: the softmax launched
+                       exactly twice a layer a step (the forward's, and
+                       the backward's rerun of each checkpointed layer,
+                       whose STE forward is the kernel), every softmax call
+                       of one more step ``torch.equal`` to its plain
+                       version and each rerun fed its forward's input;
+                       the six smoke configs (internlm2, granite-moe,
+                       rwkv6-3b, hymba-1.5b, whisper-large-v3, qwen2.5-14b
+                       with int8 moments) one float and one ``cuda`` QAT
+                       step each on the card against the CPU on the plain
+                       versions (``SMOKE_TRAIN_*``), the card's launches
+                       equal to the CPU's wrapper calls (the router's
+                       softmax on granite-moe, the GELU on whisper); a
+                       smoke LM's QAT run failing at step 5, resumed from
+                       step 4 and ``torch.equal`` to an uninterrupted run.
+
    ``lm_dense_smoke`` (14) also runs the rwkv6-3b smoke config (and its
    fused-projection and padded-head variants) and the hymba-1.5b smoke
    config, and 20 tokens of hymba decoded into its ring of 8 slots on the
@@ -315,18 +344,21 @@ The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
 the train phases (11, 12), the LM server with its ``flash_lut`` forward
 (13), the int8-cache scheduler run (``lm_int8_kv``), the moe server
 (15), the two recurrent LMs' drain batches (16, 17) and the whisper
-clips with their ``flash_lut`` forward (18) are the main paths: the
+clips with their ``flash_lut`` forward (18) and the LM launcher's runs
+(19: internlm2's float and QAT runs, the smoke LM's three) are the main
+paths: the
 counters go to 0
 just before each group and are read just after it; the launches of the
 stream phases' check forwards, of the cell phase's checks (hot-swap's warm
 and probe forwards, the refused artifact's, the taps plan's) and of the
 train phases' checks (and of the LM phases' checks after their served
-runs) are taken out of their paths' counts, which must then
+runs and of ``train_lm``'s checks) are taken out of their paths' counts, which must then
 equal what the steps, hops and runs launched.  Every path's
 count must equal what that path is expected to launch (the train path
 launches the softmax and the GELU ``n_layers`` times a step and neither
-the matmul nor the attention), and every kernel must be launched by some
-path.  Any failing phase lets its exception out (non-zero exit); nothing
+the matmul nor the attention; the LM train path the softmax twice a layer
+a step under remat, once without, and nothing else), and every kernel must
+be launched by some path.  Any failing phase lets its exception out (non-zero exit); nothing
 falls back to the CPU.  Each phase prints one JSON line; the line before
 the last is ``{"kernels": [...]}`` with, per kernel, its launches on the
 main paths, its error against the plain version and its times; the last
@@ -355,6 +387,7 @@ are ``repro_torch.perf.cost``'s).
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -3932,6 +3965,474 @@ def phase_lm_whisper(dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: LM training (train_lm)
+# ---------------------------------------------------------------------------
+
+TRAIN_LM_ARGS = ["--arch", LM_NAME, "--steps", "8", "--global-batch", "8",
+                 "--seq-len", "256", "--seed", "0"]
+TRAIN_LM_QAT_STEPS = 3
+# the central difference: one batch, a seeded direction d that scales each
+# leaf's normal draws by the leaf's RMS, L(p + eps d) - L(p - eps d) over
+# 2 eps against <g, d>.  Held at FD_EPS; the others are recorded (at
+# 1e-2 the curvature shows, at 1e-3 the float32 loss's rounding: on a
+# two-layer d 512 cut of the config on the CPU, relative 1.5e-3, 2.1e-4 and
+# 2.4e-3 at 1e-2, 3e-3 and 1e-3)
+FD_BATCH = (4, 256)
+FD_EPS = 3e-3
+FD_EPS_RECORDED = (1e-2, 3e-3, 1e-3)
+FD_REL = 1e-2
+# remat on against off at float32: the forward is the same ops on the same
+# inputs (losses torch.equal); each gradient leaf within this share of its
+# largest |g| (the embedding's backward accumulates its rows by atomics on
+# the card; the count of leaves that come out torch.equal is recorded)
+REMAT_GRAD_RTOL = 1e-4
+# the smoke configs' steps, card against CPU (the CPU on the kernels' plain
+# versions): float32 on both.  float: loss and gradients within 1e-4 (the
+# LM smoke plans' float tolerance, LM_SMOKE_FLOAT_ATOL); cuda QAT: a
+# float rounding upstream of a LUT index may move one entry a LUT bin
+# (1/32 of exp's unit in Q8.24), so the loss within 1e-3 and the gradients
+# within 1e-2.  New params after one AdamW step from zero moments: each
+# update is about lr * sign(g), and a gradient that is rounding noise on
+# both devices can take either sign, so within 2.2 lr (the KWT steps'
+# bound, tests/test_torch_train.py).
+SMOKE_TRAIN = ("internlm2-1.8b", MOE_NAME, RWKV_NAME, HYMBA_NAME, WHISPER_NAME,
+               "qwen2.5-14b")
+SMOKE_TRAIN_ATOL = {"float": (1e-4, 1e-4), "cuda": (1e-3, 1e-2)}
+SMOKE_TRAIN_BATCH = (2, 16)
+SMOKE_NEW_PARAM_LRS = 2.2
+TRAIN_LM_RESUME_ARGS = ["--arch", LM_NAME, "--smoke", "--qat", "--qat-backend",
+                        "cuda", "--steps", "8", "--global-batch", "4",
+                        "--seq-len", "32", "--seed", "5"]
+TRAIN_LM_CKPT_EVERY, TRAIN_LM_FAIL_AT = 2, 5
+
+
+def lm_train_launches(cfg, steps_run: int) -> dict:
+    """A dense LM's QAT step under the cuda backend launches the softmax
+    once per layer in its forward and, when the config sets ``remat``,
+    once more per layer in its backward: the checkpointed layer's forward
+    reruns there, its STE included, and the STE's forward is the kernel.
+    The STE's backward is the exact op's gradient in plain PyTorch, the
+    SiLU has no kernel (its cuda mode is the LUT), the linears are float
+    products of fake-quant weights and the attention is the einsum one:
+    no GELU, matmul or attention launch."""
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)
+    return {"lut_softmax": per_step * steps_run, "lut_gelu": 0,
+            "int8_matmul": 0, "lut_attention": 0}
+
+
+def lm_batch_for(cfg, seed: int, step: int, b: int, s: int) -> dict:
+    """The launcher's batch for ``step`` (``pipeline.lm_batch``, or the
+    encoder-decoder's ``_whisper_batch``), on the host."""
+    if cfg.family == "encdec":
+        return train._whisper_batch(argparse.Namespace(
+            seed=seed, global_batch=b, seq_len=s), cfg, step)
+    return pipeline.lm_batch(seed, step, global_batch=b, seq_len=s,
+                             vocab_size=cfg.vocab_size)
+
+
+def lm_step_of(result, qat_spec=None):
+    """A train step of the run's own config and hyper-parameters."""
+    cfg = result.cfg
+    hp = dataclasses.replace(steps.hparams_for(cfg), lr=1e-3, warmup_steps=2,
+                             total_steps=10)
+    shape = ShapeSpec("custom", 256, 8, "train")
+    return steps.make_train_step(cfg, shape, hp, n_micro=1, qat=qat_spec)
+
+
+def count_step_ops(step, state: tuple, batch) -> int:
+    """The ATen ops one more step of ``state`` dispatches (forward,
+    backward and AdamW; its output is dropped)."""
+    with CountOps() as counter:
+        step(*state, batch)
+        torch.cuda.synchronize()
+    return counter.n
+
+
+def full_width_float(dev) -> dict:
+    """internlm2-1.8b at full width (bf16 params, remat on) trained by the
+    launcher: every loss finite, p50 ms per step, tokens/s, peak memory,
+    ATen ops per step."""
+    torch.cuda.reset_peak_memory_stats()
+    result, _ = run_main(TRAIN_LM_ARGS)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = result.cfg
+    b = int(TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--global-batch") + 1])
+    s = int(TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--seq-len") + 1])
+    if not all(np.isfinite(result.losses)) or len(result.losses) != 8:
+        raise AssertionError(f"{cfg.name} float losses {result.losses}")
+    p50 = statistics.median(result.step_ms)
+    n_ops = count_step_ops(
+        lm_step_of(result), (result.params, result.opt_state),
+        steps.to_device(lm_batch_for(cfg, 0, 8, b, s), dev))
+    n_params = sum(t.numel() for t in tree_leaves(result.params))
+    out = {"argv": TRAIN_LM_ARGS, "dtype": cfg.dtype, "remat": cfg.remat,
+           "n_params": n_params, "tokens_per_step": b * s,
+           "losses": result.losses, "step_ms": result.step_ms,
+           "p50_ms_per_step": p50, "tokens_per_s": b * s / p50 * 1e3,
+           "peak_gb": peak / 1e9, "aten_ops_per_step": n_ops}
+    del result
+    return out
+
+
+def full_width_float32_checks(dev) -> dict:
+    """On the config at float32 (random weights drawn on the card from seed
+    1): one backward's gradient against a central difference along a seeded
+    direction, and the loss and gradients with remat on against off."""
+    cfg = registry.get(LM_NAME).config.with_(dtype="float32")
+    params = lm_model.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    b, s = FD_BATCH
+    batch = steps.to_device(lm_batch_for(cfg, 1, 0, b, s), dev)
+    out = {"batch": [b, s]}
+    got = {}
+    for remat in (True, False):
+        c = cfg.with_(remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        got[remat] = steps.value_and_grad(
+            lambda p, bb, c=c: lm_model.loss_fn(p, bb, c), params, batch)
+        torch.cuda.synchronize()
+        out[f"peak_gb_remat_{'on' if remat else 'off'}"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    (loss, grads), (loss_off, grads_off) = got[True], got[False]
+    require_equal("loss remat on vs off", loss, loss_off)
+    worst, n_equal, names = 0.0, 0, []
+    for (path, g), g_off in zip(_named_leaves(grads), tree_leaves(grads_off)):
+        scale = float(g_off.abs().max())
+        err = float((g - g_off).abs().max()) / max(scale, 1e-30)
+        n_equal += bool(torch.equal(g, g_off))
+        if not torch.equal(g, g_off):
+            names.append(path)
+        worst = max(worst, err)
+    del got, grads_off
+    if worst > REMAT_GRAD_RTOL:
+        raise AssertionError(f"remat on vs off: gradients {worst} of their "
+                             f"largest |g| apart (bound {REMAT_GRAD_RTOL})")
+    out["remat"] = {"loss": float(loss), "loss_equal": True,
+                    "grad_worst_rel": worst, "grad_rtol": REMAT_GRAD_RTOL,
+                    "leaves": len(tree_leaves(grads)),
+                    "leaves_equal": n_equal, "leaves_not_equal": names}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    d = tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev)
+                 * t.square().mean().sqrt(), params)
+    gd = sum(float((g.double() * dd.double()).sum())
+             for g, dd in zip(tree_leaves(grads), tree_leaves(d)))
+    del grads
+    rows = {}
+    with torch.no_grad():
+        for eps in FD_EPS_RECORDED:
+            lp = float(lm_model.loss_fn(
+                tree_map(lambda p, dd: p + eps * dd, params, d), batch, cfg))
+            lm = float(lm_model.loss_fn(
+                tree_map(lambda p, dd: p - eps * dd, params, d), batch, cfg))
+            fd = (lp - lm) / (2 * eps)
+            rows[str(eps)] = {"fd": fd, "rel": abs(fd - gd) / abs(gd)}
+    out["central_difference"] = {"g_dot_d": gd, "eps": rows,
+                                 "held_eps": FD_EPS, "rel_bound": FD_REL}
+    if not rows[str(FD_EPS)]["rel"] <= FD_REL:
+        raise AssertionError(f"central difference at eps {FD_EPS}: "
+                             f"{rows[str(FD_EPS)]} (bound {FD_REL})")
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@contextlib.contextmanager
+def recorded_softmax():
+    """While open, every ``ops.lut_softmax`` call records its input and
+    output (cloned)."""
+    seen, fn = [], ops.lut_softmax
+
+    def recording(x, **kw):
+        y = fn(x, **kw)
+        seen.append((x.detach().clone(), y.detach().clone()))
+        return y
+
+    ops.lut_softmax = recording
+    try:
+        yield seen
+    finally:
+        ops.lut_softmax = fn
+
+
+def full_width_qat(dev) -> tuple:
+    """The same command under ``--qat --qat-backend cuda`` for a few steps,
+    ending in ``qat.export``; the launches of its steps exactly
+    ``lm_train_launches``.  Then one more step with every softmax call
+    recorded: each kernel output ``torch.equal`` to the plain version on
+    its input, and the backward's reruns fed the forward's inputs.  Returns
+    the line, the launcher's launches and the expected count."""
+    argv = TRAIN_LM_ARGS[:]
+    argv[argv.index("--steps") + 1] = str(TRAIN_LM_QAT_STEPS)
+    argv += ["--qat", "--qat-backend", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    result, log = run_main(argv)
+    path = _rise(before)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = result.cfg
+    expected = lm_train_launches(cfg, TRAIN_LM_QAT_STEPS)
+    if path != expected:
+        raise AssertionError(f"{cfg.name} QAT run launched {path}, expected "
+                             f"{expected}")
+    if not all(np.isfinite(result.losses)):
+        raise AssertionError(f"{cfg.name} QAT losses {result.losses}")
+    b = int(argv[argv.index("--global-batch") + 1])
+    s = int(argv[argv.index("--seq-len") + 1])
+    step = lm_step_of(result, result.qat_spec)
+    batch = steps.to_device(lm_batch_for(cfg, 0, TRAIN_LM_QAT_STEPS, b, s),
+                            dev)
+    state = (result.params, result.opt_state, result.qstate)
+    before = ops.launch_counts()
+    with recorded_softmax() as seen:
+        out_state = step(*state, batch)
+        torch.cuda.synchronize()
+    rec_launches = _rise(before)
+    per_step = lm_train_launches(cfg, 1)
+    if rec_launches != per_step or len(seen) != per_step["lut_softmax"]:
+        raise AssertionError(f"one QAT step launched {rec_launches} over "
+                             f"{len(seen)} softmax calls, expected {per_step}")
+    for i, (x, y) in enumerate(seen):
+        require_equal(f"{cfg.name} QAT step softmax call {i}", y,
+                      ref.lut_softmax(x, fixed=True))
+    n = cfg.n_layers
+    # the backward reruns layer n-1 first: call n + j reruns layer n-1-j
+    for j in range(n if cfg.remat else 0):
+        require_equal(f"{cfg.name} rerun of layer {n - 1 - j}'s softmax "
+                      "input", seen[n + j][0], seen[n - 1 - j][0])
+    rows = list(seen[0][0].shape)
+    del seen, out_state
+    n_ops = count_step_ops(step, state, batch)
+    ex = result.export
+    out = {"argv": argv, "losses": result.losses, "step_ms": result.step_ms,
+           "p50_ms_per_step": statistics.median(result.step_ms),
+           "tokens_per_s": b * s / statistics.median(result.step_ms) * 1e3,
+           "peak_gb": peak / 1e9, "aten_ops_per_step": n_ops,
+           "launches": path, "launches_per_step": per_step,
+           "softmax_calls_checked": per_step["lut_softmax"],
+           "softmax_rows": rows, "softmax_equal": True,
+           "rerun_inputs_equal": bool(cfg.remat),
+           "export": {"recipe": ex.recipe.to_dict(),
+                      "packed_int_bytes": int(ex.quantized_bytes[0]),
+                      "float_bytes": int(ex.quantized_bytes[1])},
+           "exported": "[qat] exported recipe" in log}
+    return out, path, expected
+
+
+def smoke_train_step(cfg, np_tree, dev, backend: str) -> dict:
+    """One train step of a smoke config on ``dev`` from numpy weights
+    (float, or QAT on ``cuda``; on the CPU through the kernels' plain
+    versions): the loss, the gradients, the new params and the calls of
+    the two kernel wrappers."""
+    params = convert.from_numpy_tree(np_tree, dev)
+    hp = dataclasses.replace(steps.hparams_for(cfg), lr=1e-3, warmup_steps=2,
+                             total_steps=10)
+    b, s = SMOKE_TRAIN_BATCH
+    batch = steps.to_device(lm_batch_for(cfg, 3, 0, b, s), dev)
+    spec = None if backend == "float" else qat.QATSpec(
+        runtime.QuantRecipe.from_config(cfg), qat.QATConfig(backend=backend),
+        plain_kernels=dev.type == "cpu")
+    calls = {"lut_softmax": 0, "lut_gelu": 0}
+    wrapped = {name: getattr(ops, name) for name in calls}
+
+    def counting(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return wrapped[name](*a, **kw)
+        return fn
+
+    for name in calls:
+        setattr(ops, name, counting(name))
+    try:
+        if spec is None:
+            loss, grads = steps.value_and_grad(
+                lambda p, bb: steps._loss(cfg)(p, bb, cfg), params, batch)
+            new_p, new_opt, m = steps.make_train_step(
+                cfg, ShapeSpec("custom", s, b, "train"), hp)(
+                params, adamw.init(params, hp), batch)
+        else:
+            qs = qat.init_qat_state(spec, dev)
+            loss, grads = steps.value_and_grad(
+                qat_train.make_qat_loss(cfg, spec), params, batch,
+                qs["weight_exponent"], qs["step"] >= 0)
+            new_p, new_opt, _, m = steps.make_train_step(
+                cfg, ShapeSpec("custom", s, b, "train"), hp, qat=spec)(
+                params, adamw.init(params, hp), qs, batch)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
+    return {"loss": loss, "grads": grads, "new_params": new_p, "lr": m["lr"],
+            "calls": dict(calls), "int8_moments": hp.int8_moments}
+
+
+def _tree_max_abs(a, b) -> float:
+    return max(float((x.detach().cpu().to(torch.float64)
+                      - y.detach().cpu().to(torch.float64)).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def smoke_qat_calls(cfg) -> dict:
+    """The softmax and GELU launches of ``smoke_train_step``'s two QAT
+    forwards (the loss's and the step's; a smoke config sets no remat):
+    per forward one attention softmax a layer, a moe layer's router rows
+    one more, rwkv none; the encoder-decoder one per encoder layer and two
+    per decoder layer (self and cross), and a GELU per layer of both."""
+    n = cfg.n_layers
+    per = {"dense": (n, 0), "moe": (2 * n, 0), "rwkv": (0, 0),
+           "hybrid": (n, 0),
+           "encdec": (cfg.n_enc_layers + 2 * n, cfg.n_enc_layers + n)}
+    sm, ge = per[cfg.family]
+    return {"lut_softmax": 2 * sm, "lut_gelu": 2 * ge}
+
+
+def smoke_train_card_vs_cpu(dev, failures: list) -> list:
+    """The six smoke configs (a dense, the moe, the two recurrent, the
+    encoder-decoder and a dense one with int8 moments), one float step and
+    one cuda QAT step each on the card and on the CPU, from the same numpy
+    weights and batch: loss, gradients and new params within
+    ``SMOKE_TRAIN_ATOL`` / ``SMOKE_NEW_PARAM_LRS``; the card's launches
+    equal the CPU's calls of the two wrappers and ``smoke_qat_calls`` (the
+    GELU on whisper's, the router's softmax on granite-moe's)."""
+    rows = []
+    for name in SMOKE_TRAIN:
+        cfg = registry.get(name).smoke
+        np_tree = seeded_lm_params(cfg, 0)
+        row = {"model": name, "family": cfg.family}
+        for backend in ("float", "cuda"):
+            before = ops.launch_counts()
+            card = smoke_train_step(cfg, np_tree, dev, backend)
+            rose = _rise(before)
+            cpu = smoke_train_step(cfg, np_tree, torch.device("cpu"), backend)
+            loss_atol, grad_atol = SMOKE_TRAIN_ATOL[backend]
+            lr = float(card["lr"])
+            r = {"loss_card": float(card["loss"]), "loss_cpu": float(cpu["loss"]),
+                 "loss_abs": abs(float(card["loss"]) - float(cpu["loss"])),
+                 "grad_max_abs": _tree_max_abs(card["grads"], cpu["grads"]),
+                 "new_param_max_abs": _tree_max_abs(card["new_params"],
+                                                    cpu["new_params"]),
+                 "new_param_atol": SMOKE_NEW_PARAM_LRS * lr,
+                 "loss_atol": loss_atol, "grad_atol": grad_atol,
+                 "launches": {k: rose[k] for k in ("lut_softmax", "lut_gelu")},
+                 "cpu_calls": cpu["calls"],
+                 "int8_moments": card["int8_moments"]}
+            want = {k: rose[k] for k in ("int8_matmul", "lut_attention")}
+            if any(want.values()) or r["launches"] != cpu["calls"] or \
+                    (backend == "float" and any(cpu["calls"].values())):
+                failures.append(f"{name} {backend}: launched {rose}, the "
+                                f"CPU called {cpu['calls']}")
+            if not (np.isfinite(r["loss_card"]) and r["loss_abs"] <= loss_atol
+                    and r["grad_max_abs"] <= grad_atol
+                    and r["new_param_max_abs"] <= r["new_param_atol"]):
+                failures.append(f"{name} {backend}: {r}")
+            row[backend] = r
+        want = smoke_qat_calls(cfg)
+        if row["cuda"]["launches"] != want:
+            failures.append(f"{name}: the QAT loss and step launched "
+                            f"{row['cuda']['launches']}, expected {want}")
+        rows.append(row)
+    return rows
+
+
+def smoke_crash_resume(tmp: str) -> tuple:
+    """A smoke LM trained by the launcher under ``--qat-backend cuda``:
+    a run that fails at step 5 with checkpoints every 2 steps, its rerun
+    (which must resume from step 4) and an uninterrupted run, whose params
+    and optimizer state must be ``torch.equal``.  Returns the line, the
+    three runs' launches and their expected count."""
+    ckpt = os.path.join(tmp, "lm_ckpt")
+    ck = ["--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_LM_CKPT_EVERY)]
+    before = ops.launch_counts()
+    try:
+        run_main(TRAIN_LM_RESUME_ARGS + ck + ["--fail-at-step",
+                                              str(TRAIN_LM_FAIL_AT)])
+    except RuntimeError as err:
+        if "injected failure" not in str(err):
+            raise
+    else:
+        raise AssertionError("the LM run with --fail-at-step did not fail")
+    resumed, log = run_main(TRAIN_LM_RESUME_ARGS + ck)
+    full, _ = run_main(TRAIN_LM_RESUME_ARGS)
+    path = _rise(before)
+    want = TRAIN_LM_FAIL_AT // TRAIN_LM_CKPT_EVERY * TRAIN_LM_CKPT_EVERY
+    if resumed.resumed_from != want or \
+            f"[restore] resuming from step {want}" not in log:
+        raise AssertionError(f"resumed from {resumed.resumed_from}, expected "
+                             f"{want}")
+    for what, a, b in (("param", resumed.params, full.params),
+                       ("optimizer leaf", resumed.opt_state, full.opt_state)):
+        for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+            require_equal(f"LM resumed vs uninterrupted {what} {i}", x, y)
+    n = int(TRAIN_LM_RESUME_ARGS[TRAIN_LM_RESUME_ARGS.index("--steps") + 1])
+    steps_run = TRAIN_LM_FAIL_AT + (n - want) + n
+    expected = lm_train_launches(full.cfg, steps_run)
+    if path != expected:
+        raise AssertionError(f"the LM resume runs launched {path}, expected "
+                             f"{expected}")
+    if resumed.losses != full.losses[want:]:
+        raise AssertionError(f"resumed losses {resumed.losses} vs "
+                             f"{full.losses[want:]}")
+    return ({"argv": TRAIN_LM_RESUME_ARGS, "resumed_from": want,
+             "params_and_moments_equal": True, "steps_run": steps_run,
+             "losses": full.losses}, path, expected)
+
+
+def phase_train_lm(dev, tmp: str) -> tuple:
+    """LM training (ROADMAP A3.4): internlm2-1.8b at full width through
+    ``launch.train.main``, float and ``--qat --qat-backend cuda``; the
+    float32 gradient checks; the smoke configs card against CPU; crash and
+    resume of a smoke LM.  Returns the line, the launches of the launcher
+    runs (the path's), those of the checks and the expected count."""
+    out = {"phase": "train_lm", "model": LM_NAME}
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out["float"] = full_width_float(dev)
+    float_path = _rise(before)
+    if any(float_path.values()):
+        raise AssertionError(f"the float run launched {float_path}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_float"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    out["float32_checks"] = full_width_float32_checks(dev)
+    checks = _rise(before)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_float32_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    out["qat"], qat_path, qat_exp = full_width_qat(dev)
+    qat_checks = {k: v - qat_path[k] for k, v in _rise(before).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_qat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    failures = []
+    out["smoke"] = smoke_train_card_vs_cpu(dev, failures)
+    smoke_checks = _rise(before)
+    out["seconds_smoke"] = time.perf_counter() - t0
+    if failures:
+        out["failures"] = failures
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    t0 = time.perf_counter()
+    out["resume"], resume_path, resume_exp = smoke_crash_resume(tmp)
+    out["seconds_resume"] = time.perf_counter() - t0
+    path = {k: float_path[k] + qat_path[k] + resume_path[k] for k in qat_path}
+    expected = {k: qat_exp[k] + resume_exp[k] for k in qat_exp}
+    checks = {k: checks[k] + qat_checks[k] + smoke_checks[k] for k in checks}
+    out["launches"], out["check_launches"] = path, checks
+    emit(out)
+    return path, checks, expected
+
+
+# ---------------------------------------------------------------------------
 # the contract line
 # ---------------------------------------------------------------------------
 
@@ -4201,6 +4702,23 @@ def main() -> None:
         raise AssertionError(f"encdec launches {launches['encdec']} are not "
                              f"those of its clips and flash forward, {rose}")
     seconds["lm_whisper"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the LM train path: the launcher's runs (internlm2-1.8b at full width,
+    # float and QAT, and the smoke LM's crash, resume and uninterrupted
+    # runs), less the launches of the checks the phase makes besides
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_",
+                                     dir=build.build_dir()) as tmp:
+        rose, tchecks, texp = phase_train_lm(dev, tmp)
+    counted = ops.launch_counts()
+    launches["train_lm"] = {n: counted[n] - tchecks[n] for n in counted}
+    expected["train_lm"] = texp
+    if launches["train_lm"] != rose:
+        raise AssertionError(f"train_lm launches {launches['train_lm']} are "
+                             f"not those of its launcher runs, {rose}")
+    seconds["train_lm"] = time.perf_counter() - t0
     emit({"phase": "seconds", "seconds": seconds,
           "total": time.perf_counter() - t_start})
 

@@ -81,7 +81,8 @@ class ModelConfig:
     int_exec: bool = False        # integer-executing plan; pinned by
     #                               runtime.compile_model, never set by hand
     quant: Optional[QuantConfig] = None
-    # --- compile / distribution knobs (field-set parity; unread) ---
+    # --- compile / distribution knobs (remat: layers.remat, in training;
+    #     the rest field-set parity, unread) ---
     remat: bool = True
     scan_layers: bool = True
     attn_impl: str = "xla"        # xla: plain einsum attention; flash_lut:

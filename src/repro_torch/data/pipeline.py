@@ -9,17 +9,18 @@ numpy twin of JAX's default PRNG, so labels and uniforms equal the
 reference's bit for bit, and normals and the float32 arithmetic on them
 agree within the tolerances ``tests/test_torch_data.py`` states.
 
-1. ``keyword_batch``       — synthetic GSC-style MFCC keyword data for KWT
+1. ``lm_batch``            — a synthetic token stream for the LM families
+   (tokens bit for bit the reference's).
+2. ``keyword_batch``       — synthetic GSC-style MFCC keyword data for KWT
    ("dog"/"notdog", paper §III).
-2. ``keyword_audio_batch`` — the same task one level earlier in the signal
+3. ``keyword_audio_batch`` — the same task one level earlier in the signal
    chain: raw audio that ``stream.features.mfcc`` featurises.
-3. ``keyword_event_stream`` — an unbounded-stream surrogate for the
+4. ``keyword_event_stream`` — an unbounded-stream surrogate for the
    serving cell: noise with keyword chirps at random positions (numpy
    ``RandomState``, as the reference: positions are exact).
 
 Batches are made on the host, in float32, and returned as CPU tensors;
-the train step moves them to the parameters' device.  The LM token stream
-waits for the LM families (ROADMAP queue A item 3).
+the train step moves them to the parameters' device.
 """
 
 from __future__ import annotations
@@ -34,6 +35,19 @@ f32 = np.float32
 
 def _keys(seed: int, step: int, n: int = 4) -> np.ndarray:
     return prng.split(prng.fold_in(prng.PRNGKey(seed), step), n)
+
+
+def lm_batch(seed: int, step: int, *, global_batch: int, seq_len: int,
+             vocab_size: int) -> dict:
+    """Synthetic next-token data: ``{"tokens": [B, S], "labels": [B, S]}``
+    int32, the labels the tokens shifted by one.  A Zipf-ish marginal
+    (a squared uniform favours low ids): ``floor(u^2 * (vocab - 1))`` of
+    float32 uniforms, the reference's bits."""
+    key = prng.fold_in(prng.PRNGKey(seed), step)
+    u = prng.uniform(key, (global_batch, seq_len + 1))
+    toks = (np.square(u) * f32(vocab_size - 1)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+            "labels": torch.from_numpy(toks[:, 1:].copy())}
 
 
 def keyword_batch(seed: int, step: int, *, batch: int, input_dim=(16, 26),

@@ -1,13 +1,20 @@
-"""Train-step builders for the KWT family: ``make_train_step(cfg, shape,
-hp)`` -> ``(params, opt_state, batch) -> (params, opt_state, metrics)``,
-and its quantisation-aware mode (``qat=``, ``repro_torch.qat.train``).
+"""Step builders: per (architecture x shape) train / prefill / decode
+steps and their input specs, for every family on one device.
+
+``make_train_step(cfg, shape, hp)`` -> ``(params, opt_state, batch) ->
+(params, opt_state, metrics)``, and its quantisation-aware mode (``qat=``,
+``repro_torch.qat.train``); ``make_prefill_step`` / ``make_decode_step``
+-> ``(params, state, batch) -> (logits, state)``.
 
 The reference jits one program per step; here a step is eager PyTorch:
 the loss forward records a graph, ``torch.autograd.grad`` takes the
 gradients of every parameter leaf, and ``optim.adamw.update`` writes new
 tensors.  Microbatches accumulate float32 gradients in a loop.  The
-mesh-sharded LM steps, their input / sharding specs and the compressed
-gradient sync wait for ROADMAP queue A items 3 and 4.
+reference's ``ShapeDtypeStruct`` trees (``input_specs``, ``params_shape``,
+``decode_state_shape``) are tensors on the ``meta`` device: shape and
+dtype, no storage.  The mesh-sharded pieces — the sharding trees, the
+step programs and their lowering, the compressed gradient sync — wait for
+ROADMAP queue A item 4.
 """
 
 from __future__ import annotations
@@ -23,6 +30,28 @@ from repro_torch.runtime.engine import _model_module
 
 Pytree = Any
 
+# the reference's grad-accumulation microbatch counts (chosen there so
+# that per-device activation checkpoints fit a TPU pod slice's memory)
+MICROBATCHES = {
+    ("nemotron-4-340b", "train_4k"): 16,
+    ("chameleon-34b", "train_4k"): 16,
+    ("qwen2.5-14b", "train_4k"): 8,
+    ("granite-8b", "train_4k"): 8,
+    ("deepseek-moe-16b", "train_4k"): 8,
+    ("granite-moe-3b-a800m", "train_4k"): 2,
+    ("internlm2-1.8b", "train_4k"): 2,
+    ("rwkv6-3b", "train_4k"): 4,
+    ("hymba-1.5b", "train_4k"): 4,
+    ("whisper-large-v3", "train_4k"): 4,
+}
+
+# archs whose optimizer state is int8 (the reference's table; a smoke
+# config keeps its arch's name, so it trains with int8 moments too)
+INT8_MOMENT_ARCHS = {"nemotron-4-340b", "deepseek-moe-16b", "chameleon-34b",
+                     "qwen2.5-14b"}
+
+_MESH = "item 4 (dist)"
+
 
 def not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: it waits for "
@@ -30,15 +59,15 @@ def not_ported(what: str, item: str):
 
 
 def hparams_for(cfg: ModelConfig) -> adamw.HParams:
-    """float32 moments: the reference gives int8 moments only to LM
-    configs, which come with ROADMAP queue A item 3."""
-    return adamw.HParams()
+    return adamw.HParams(int8_moments=cfg.name in INT8_MOMENT_ARCHS)
 
 
-def microbatches(cfg: ModelConfig, shape: ShapeSpec) -> int:
-    """Gradient-accumulation microbatches: 1 for the KWT family (the
-    reference's table covers only LM configs at ``train_4k``)."""
-    return 1
+def microbatches(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> int:
+    """Gradient-accumulation microbatches of the reference's table (1 for
+    any other arch or shape); a mesh's data-parallel split is item 4."""
+    if mesh is not None:
+        not_ported("microbatches over a mesh", _MESH)
+    return MICROBATCHES.get((cfg.name, shape.name), 1)
 
 
 def model_module(cfg: ModelConfig):
@@ -47,6 +76,65 @@ def model_module(cfg: ModelConfig):
     dense, moe, rwkv and hybrid LMs."""
     return _model_module(cfg)
 
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shape and dtype, no storage)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Model inputs for one step of the given shape (no state, no
+    params): int32 token ids, encdec frames in the model dtype."""
+    gb, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    out = {}
+    if cfg.family == "encdec" and shape.kind != "decode":
+        out["frames"] = _meta((gb, cfg.enc_seq, cfg.d_model),
+                              getattr(torch, cfg.dtype))
+    if shape.kind == "decode":
+        return {"token": _meta((gb,), i32)}
+    out["tokens"] = _meta((gb, s), i32)
+    if shape.kind == "train":
+        out["labels"] = _meta((gb, s), i32)
+    return out
+
+
+def params_shape(cfg: ModelConfig):
+    """The parameter tree as meta tensors (``jax.eval_shape`` of
+    ``init_params``)."""
+    return model_module(cfg).init_params(cfg, torch.Generator(), "meta")
+
+
+def decode_state_shape(cfg: ModelConfig, shape: ShapeSpec):
+    """The decode state for ``shape`` as meta tensors (``index`` an int)."""
+    return model_module(cfg).init_decode_state(
+        cfg, shape.global_batch, shape.seq_len, device="meta")
+
+
+def _mesh_only(name: str):
+    def fn(*args, **kw):
+        not_ported(f"{name} (a mesh's shardings and step programs)", _MESH)
+    fn.__name__ = name
+    fn.__doc__ = f"The reference's ``{name}``: ROADMAP queue A item 4."
+    return fn
+
+
+seq_axis_for = _mesh_only("seq_axis_for")
+batch_pspec = _mesh_only("batch_pspec")
+dp_for = _mesh_only("dp_for")
+param_pspecs = _mesh_only("param_pspecs")
+decode_state_pspecs = _mesh_only("decode_state_pspecs")
+build_step_program = _mesh_only("build_step_program")
+lower_program = _mesh_only("lower_program")
+cost_programs = _mesh_only("cost_programs")
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
 
 def _loss(cfg: ModelConfig):
     return model_module(cfg).loss_fn
@@ -76,14 +164,17 @@ def to_device(batch: dict, device) -> dict:
 def value_and_grad(loss_fn, params: Pytree, *args):
     """``(loss, grads)`` of ``loss_fn(params, *args)`` over every leaf of
     ``params`` (float tensors; a detached copy of the tree records the
-    graph, so the caller's tensors are untouched)."""
+    graph, so the caller's tensors are untouched).  A leaf the loss does
+    not reach gets a zero gradient, as ``jax.grad`` gives it (rwkv's
+    decay under the LUT softplus, a table gather, is one)."""
     leaves = tree_leaves(params)
     live = [leaf.detach().requires_grad_(True) for leaf in leaves]
     it = iter(live)
     run = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
         loss = loss_fn(run, *args)
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 
@@ -131,7 +222,7 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, hp=None, n_micro=None,
     ``NotImplementedError``: ROADMAP queue A item 4.
     """
     if sync_mesh is not None:
-        not_ported("sync_mesh (compressed gradient sync)", "item 4 (dist)")
+        not_ported("sync_mesh (compressed gradient sync)", _MESH)
     if qat is not None:
         from repro_torch.qat import train as qat_train
         return qat_train.make_qat_train_step(cfg, shape, hp=hp,
@@ -152,3 +243,27 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, hp=None, n_micro=None,
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec):
+    """``(params, state, batch) -> (last logits, state)``: the model
+    module's ``prefill`` (encdec's takes the batch's frames too)."""
+    mod = model_module(cfg)
+    if cfg.family == "encdec":
+        def step(params, state, batch):
+            return mod.prefill(params, batch["frames"], batch["tokens"],
+                               cfg, state)
+        return step
+
+    def step(params, state, batch):
+        return mod.prefill(params, batch["tokens"], cfg, state)
+    return step
+
+
+def make_decode_step(cfg: ModelConfig, shape: ShapeSpec):
+    """``(params, state, batch) -> (logits, state)`` of one token."""
+    mod = model_module(cfg)
+
+    def step(params, state, batch):
+        return mod.decode_step(params, batch["token"], cfg, state)
+    return step

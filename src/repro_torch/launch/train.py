@@ -1,9 +1,12 @@
-"""Fault-tolerant training launcher for the KWT family, on one device.
+"""Fault-tolerant training launcher, on one device: the KWT family and
+the LM families (dense, moe, rwkv, hybrid, encdec).
 
 The twin of the reference's ``repro.launch.train`` with the same
 production code paths (``steps.make_train_step`` + the checkpoint
 manager):
-  * deterministic stateless-seeded data (restart-exact resume),
+  * deterministic stateless-seeded data (restart-exact resume): KWT's
+    keyword batches, the LMs' token stream (``pipeline.lm_batch``), the
+    encoder-decoder's frames and tokens (``_whisper_batch``),
   * periodic checkpointing (atomic rename; the optimizer state in a
     writer thread),
   * crash/preemption recovery: ``--fail-at-step N`` injects a failure;
@@ -12,17 +15,26 @@ manager):
   * straggler watchdog: an EWMA step-time monitor flags slow steps,
   * quantisation-aware training (``--qat``) under a runtime backend's
     numerics — ``--qat-backend cuda`` runs the hand-written LUT softmax
-    and GELU kernels in every training forward, behind straight-through
-    estimators — with optional KD from a float teacher
-    (``--distill-teacher-arch``), and the export of the trained artifact.
+    (and, for a GELU model, the LUT GELU) in every training forward,
+    behind straight-through estimators — with optional KD from a float
+    teacher for KWT (``--distill-teacher-arch``), and the export of the
+    trained artifact.
+
+An LM trains at ``--seq-len`` tokens (``--smoke``: its arch's reduced
+config), with its weights drawn from ``--seed`` on the device (full width
+on the card); a config with ``remat`` set checkpoints every layer.  With
+``--device cpu`` an LM's ``--qat-backend cuda`` runs the kernels' plain
+versions, as ``launch.serve`` plans ``cuda`` there; KWT's refuses it.
 
 Usage (the card by default; the CPU only with ``--device cpu``)::
 
   python -m repro_torch.launch.train --arch kwt-tiny --qat --qat-backend cuda \\
       --distill-teacher-arch kwt-1 --steps 200 --ckpt-dir /tmp/ckpt
+  python -m repro_torch.launch.train --arch internlm2-1.8b --steps 8 \\
+      --global-batch 8 --seq-len 256 --qat --qat-backend cuda
 
-The mesh flags (``--data``/``--model`` above 1), ``--compressed-grads``
-and the LM families wait for ROADMAP queue A items 3 and 4.
+The mesh flags (``--data``/``--model`` above 1) and
+``--compressed-grads`` wait for ROADMAP queue A item 4.
 """
 
 from __future__ import annotations
@@ -38,7 +50,7 @@ import torch
 from repro_torch.checkpoint import manager
 from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeSpec
-from repro_torch.data import pipeline
+from repro_torch.data import pipeline, prng
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps
 from repro_torch.optim import adamw
@@ -87,8 +99,13 @@ class TrainResult:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="kwt-tiny")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="tokens per sequence (the LM families; KWT's is "
+                         "its input's time axis)")
     ap.add_argument("--data", type=int, default=1, help="mesh data axis")
     ap.add_argument("--model", type=int, default=1, help="mesh model axis")
     ap.add_argument("--ckpt-dir", default=None)
@@ -113,8 +130,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="freeze the learned exponent after this step "
                          "(0: keep recalibrating every step)")
     ap.add_argument("--distill-teacher-arch", default=None,
-                    help="float teacher arch for KD during QAT (e.g. kwt-1; "
-                         "its head is reduced to the student's classes)")
+                    help="KWT only: float teacher arch for KD during QAT "
+                         "(e.g. kwt-1; its head is reduced to the "
+                         "student's classes)")
     ap.add_argument("--distill-teacher-steps", type=int, default=200,
                     help="float training steps for the inline KD teacher")
     ap.add_argument("--distill-alpha", type=float, default=0.5)
@@ -126,7 +144,7 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _qat_spec(args, cfg, device):
+def _qat_spec(args, cfg, device, ap):
     """The QAT spec of the flags, with its inline KD teacher trained on
     ``device``; and the teacher's class count (the fine-grained batches it
     needs) or ``None``."""
@@ -135,6 +153,9 @@ def _qat_spec(args, cfg, device):
 
     distill, fine_classes = None, None
     if args.distill_teacher_arch:
+        if cfg.family != "kwt":
+            ap.error("--distill-teacher-arch is the KWT KD path "
+                     "(paper §III); LM QAT runs without a teacher")
         from repro_torch.qat import distill as distill_mod
         tcfg = distill_mod.teacher_config(
             registry.get(args.distill_teacher_arch).config, cfg)
@@ -157,7 +178,8 @@ def _qat_spec(args, cfg, device):
                           start_step=args.qat_start_step,
                           learn_exponent=args.qat_learn_exponent,
                           freeze_exponent_step=args.qat_freeze_exponent_step),
-        distill=distill)
+        distill=distill,
+        plain_kernels=cfg.family != "kwt" and device.type == "cpu")
     spec.check_device(device)
     print(f"[qat] recipe {spec.recipe} under backend={args.qat_backend}",
           flush=True)
@@ -187,20 +209,52 @@ def _restore(args, params, opt_state, qstate):
     return params, opt_state, qstate, latest
 
 
+def _whisper_batch(args, cfg, step) -> dict:
+    """The encoder-decoder's synthetic batch for ``step``: standard-normal
+    frames ``[B, enc_seq, d_model]`` (the stub frontend's output) and
+    uniform tokens, labels the tokens shifted by one — the reference's
+    keys and draws (``data.prng``: tokens exact, frames within the
+    normals' tolerance)."""
+    key = prng.fold_in(prng.PRNGKey(args.seed + 77), step)
+    k1, k2 = prng.split(key)
+    frames = prng.normal(k1, (args.global_batch, cfg.enc_seq, cfg.d_model))
+    toks = prng.randint(k2, (args.global_batch, args.seq_len + 1), 0,
+                        cfg.vocab_size)
+    return {"frames": torch.from_numpy(frames),
+            "tokens": torch.from_numpy(toks[:, :-1].copy()),
+            "labels": torch.from_numpy(toks[:, 1:].copy())}
+
+
+def _batch(args, cfg, step, fine_classes) -> dict:
+    if cfg.family == "kwt":
+        batch = pipeline.keyword_batch(
+            args.seed, step, batch=args.global_batch, input_dim=cfg.input_dim,
+            n_classes=fine_classes or cfg.n_classes)
+        if fine_classes:
+            batch = {"mfcc": batch["mfcc"],
+                     "labels": batch["labels"] % cfg.n_classes}
+        return batch
+    if cfg.family == "encdec":
+        return _whisper_batch(args, cfg, step)
+    return pipeline.lm_batch(args.seed, step, global_batch=args.global_batch,
+                             seq_len=args.seq_len, vocab_size=cfg.vocab_size)
+
+
 def main(argv=None) -> TrainResult:
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
     if args.data * args.model != 1:
         steps.not_ported("a device mesh (--data/--model)", "item 4 (dist)")
     if args.compressed_grads:
         steps.not_ported("--compressed-grads", "item 4 (dist)")
-    cfg = registry.get(args.arch).config
-    if cfg.family != "kwt":
-        steps.not_ported(f"training family {cfg.family!r}",
-                         "item 3 (LM families)")
+    entry = registry.get(args.arch)
+    cfg = entry.smoke if args.smoke else entry.config
     if args.distill_teacher_arch and not args.qat:
         raise ValueError("--distill-teacher-arch is the KD path of --qat")
     device = resolve_device(args.device)
-    shape = ShapeSpec("custom", cfg.input_dim[1], args.global_batch, "train")
+    kwt = cfg.family == "kwt"
+    seq_len = cfg.input_dim[1] if kwt else args.seq_len
+    shape = ShapeSpec("custom", seq_len, args.global_batch, "train")
     hp = dataclasses.replace(steps.hparams_for(cfg), lr=1e-3,
                              warmup_steps=max(2, args.steps // 10),
                              total_steps=max(args.steps, 10))
@@ -208,10 +262,12 @@ def main(argv=None) -> TrainResult:
 
     qat_spec, fine_classes = None, None
     if args.qat:
-        qat_spec, fine_classes = _qat_spec(args, cfg, device)
+        qat_spec, fine_classes = _qat_spec(args, cfg, device, ap)
 
-    params = mod.init_params(cfg, torch.Generator().manual_seed(args.seed),
-                             device)
+    # KWT draws its weights on the host; an LM on the device (as
+    # launch.serve: full width on the card)
+    gen = torch.Generator() if kwt else torch.Generator(device=device)
+    params = mod.init_params(cfg, gen.manual_seed(args.seed), device)
     opt_state = adamw.init(params, hp)
     qstate = None
     if qat_spec is not None:
@@ -235,14 +291,8 @@ def main(argv=None) -> TrainResult:
                 raise RuntimeError(
                     f"[injected failure] node lost at step {step} — rerun "
                     "the same command to recover from the last checkpoint")
-            batch = pipeline.keyword_batch(
-                args.seed, step, batch=args.global_batch,
-                input_dim=cfg.input_dim,
-                n_classes=fine_classes or cfg.n_classes)
-            if fine_classes:
-                batch = {"mfcc": batch["mfcc"],
-                         "labels": batch["labels"] % cfg.n_classes}
-            batch = steps.to_device(batch, device)
+            batch = steps.to_device(_batch(args, cfg, step, fine_classes),
+                                    device)
             t0 = time.perf_counter()
             if qstate is not None:
                 params, opt_state, qstate, metrics = train_step(

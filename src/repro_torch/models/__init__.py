@@ -1,2 +1,3 @@
-"""Models of the port: the Keyword Transformer (``kwt``) over the shared
-``layers``.  The LM families are a later slice."""
+"""Models of the port: the Keyword Transformer (``kwt``), the decoder-only
+LMs (``transformer`` over ``moe``, ``rwkv`` and ``ssm``) and the
+encoder-decoder (``encdec``), over the shared ``layers``."""

@@ -21,10 +21,11 @@ family but does not drive it (its ``prefill`` / ``decode_step`` /
 ``forward`` raise).
 
 As in ``models.transformer``, the stacked layers are walked in a Python
-loop (each layer a view ``leaf[i]``), and ``prefill`` / ``decode_step``
-write the decode state in place and return it with its index advanced:
-the self-attention caches by ``layers.apply_attention``, the
-cross-attention cache by ``prefill``, which fills it from the encoder
+loop (each layer a view ``leaf[i]``; checkpointed under ``cfg.remat``
+where a graph is recorded, ``layers.remat``), and ``prefill`` /
+``decode_step`` write the decode state in place and return it with its
+index advanced: the self-attention caches by ``layers.apply_attention``,
+the cross-attention cache by ``prefill``, which fills it from the encoder
 memory (the reference returns new caches instead).  The index is an int:
 the reference has no per-lane path for this family.
 
@@ -229,7 +230,7 @@ def encode(params, frames, cfg):
     x = x + sinusoid(torch.arange(x.shape[1], device=x.device),
                      cfg.d_model).to(x.dtype)
     for bp in _layers(params["enc_blocks"]):
-        x = apply_enc_block(bp, x, cfg)
+        x = L.remat(cfg, lambda h, bp=bp: apply_enc_block(bp, h, cfg), x, bp)
     return L.apply_norm(params["ln_enc"], x, cfg)
 
 
@@ -237,7 +238,8 @@ def decode_train(params, memory, tokens, cfg):
     """Teacher-forced decoder pass -> logits [B,S,V]."""
     x, pos = _embed(params, tokens, cfg)
     for bp in _layers(params["dec_blocks"]):
-        x, _ = apply_dec_block(bp, x, cfg, positions=pos, memory=memory)
+        x = L.remat(cfg, lambda h, bp=bp: apply_dec_block(
+            bp, h, cfg, positions=pos, memory=memory)[0], x, bp)
     x = L.apply_norm(params["ln_dec"], x, cfg)
     return _head(params, x, cfg)
 

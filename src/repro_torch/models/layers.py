@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import approx
 from repro_torch.core import quant
+from repro_torch.core.tree import tree_leaves
 from repro_torch.telemetry import taps as _health
 
 def executes_int(w, eq: str, cfg) -> bool:
@@ -78,6 +79,25 @@ def linear(x, w, eq: str, cfg=None):
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     return torch.einsum(eq, x, w)
+
+
+def remat(cfg, fn, x, weights):
+    """``fn(x)`` for one layer, under activation checkpointing where the
+    reference's ``jax.checkpoint`` would apply: ``cfg.remat`` set and an
+    autograd graph being recorded through ``x`` or the layer's
+    ``weights`` (a tree).  Then the layer is one
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: its
+    activations are dropped after the forward and the backward reruns
+    it (every approx op of the rerun again, the kernels behind the STEs
+    included).  Otherwise — ``remat`` off, or no graph (every serving
+    path) — ``fn(x)`` as it is, with no op added."""
+    if not (cfg.remat and torch.is_grad_enabled()) or not (
+            x.requires_grad
+            or any(isinstance(w, torch.Tensor) and w.requires_grad
+                   for w in tree_leaves(weights))):
+        return fn(x)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, x, use_reentrant=False)
 
 
 def keep_dtype(y, x):
@@ -119,7 +139,10 @@ def he(generator, shape, scale, dtype, device="cpu"):
     """Scaled-normal initialiser.  Drawn from ``generator`` on the
     generator's own device (a CPU generator gives one stream of numbers
     whatever the target device; a CUDA one draws full-width LM weights on
-    the card), then moved."""
+    the card), then moved.  On the ``meta`` device nothing is drawn: a
+    tree of shapes and dtypes (``launch.steps.params_shape``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)

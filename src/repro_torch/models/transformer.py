@@ -8,7 +8,10 @@ place of the MLP.
 
 The reference scans its stacked layers (``lax.scan``); here the stack is
 a Python loop over the same stacked leaves (``blocks``: every leaf
-``[n_layers, ...]``), each layer a view ``leaf[i]``.
+``[n_layers, ...]``), each layer a view ``leaf[i]``.  Under ``cfg.remat``
+a stateless pass that records a graph (training: ``loss_fn``) runs each
+layer checkpointed, as the reference's ``jax.checkpoint`` does
+(``layers.remat``); serving never does.
 
 Decode state: ``{"layers": ..., "index": i}``, every ``layers`` leaf
 stacked ``[n_layers, B, ...]``:
@@ -178,12 +181,19 @@ def _scan_blocks(params, x, cfg, *, positions, states=None, cache_index=None,
         if states is None and recurrent else None
     for i in range(cfg.n_layers):
         bp = tree_map(lambda a, i=i: _layer(a, i), params["blocks"])
-        st = fresh if states is None else \
-            tree_map(lambda a, i=i: a[i], states)
+        if states is None:
+            # stateless (forward, training): a dropped state, so a layer
+            # may be checkpointed (the reference's remat)
+            x = L.remat(cfg, lambda h, bp=bp: apply_block(
+                bp, h, cfg, fresh, positions=positions,
+                cache_index=cache_index, kv_len_valid=kv_len_valid,
+                ring=ring)[0], x, bp)
+            continue
+        st = tree_map(lambda a, i=i: a[i], states)
         x, new = apply_block(bp, x, cfg, st, positions=positions,
                              cache_index=cache_index,
                              kv_len_valid=kv_len_valid, ring=ring)
-        if states is not None and recurrent:
+        if recurrent:
             _write_state(st, new)
     return x, states
 
@@ -221,6 +231,21 @@ def forward(params, tokens, cfg, *, positions=None):
     x, _ = _scan_blocks(params, x, cfg, positions=positions)
     x = L.apply_norm(params["ln_f"], x, cfg)
     return _head(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg):
+    """Next-token cross-entropy of ``forward``: float32 logsumexp less the
+    gold logit, the mean over tokens, or with ``batch["mask"]`` the
+    masked mean ``sum(nll * mask) / max(sum(mask), 1)``."""
+    logits = forward(params, batch["tokens"], cfg).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,10 @@ class QATSpec:
     recipe: QuantRecipe
     config: QATConfig = QATConfig()
     distill: Optional[Any] = None      # qat.distill.DistillSpec
+    # the kernels' plain versions on the CPU, by explicit request only
+    # (runtime.compile_model's plain_kernels): the kernel backend's
+    # rehearsal on the host
+    plain_kernels: bool = False
 
     def exec_cfg(self, cfg):
         """The model config the QAT loss forward actually runs: the
@@ -80,10 +84,12 @@ class QATSpec:
         return backends.get_backend(self.config.backend).configure(cfg)
 
     def check_device(self, device: torch.device) -> None:
-        """A backend of hand-written kernels needs a CUDA device, as in
+        """A backend of hand-written kernels needs a CUDA device, unless
+        ``plain_kernels`` asks for their plain versions, as in
         ``runtime.compile_model``."""
         be = backends.get_backend(self.config.backend)
-        if be.uses_kernels and device.type != "cuda":
+        if be.uses_kernels and device.type != "cuda" and \
+                not self.plain_kernels:
             raise ValueError(
                 f"QAT backend {be.name!r} runs hand-written CUDA kernels and "
                 f"needs a CUDA device, got {str(device)!r}; on the CPU train "
@@ -164,6 +170,18 @@ def make_qat_loss(cfg, qat: QATSpec):
     return loss_at
 
 
+def grad_view(params: Pytree, spec: QATSpec) -> Pytree:
+    """The tree the QAT step differentiates: every leaf that fake-quant
+    reads as float32.  The reference's STE hands a bf16 shadow weight a
+    float32 cotangent (its ``custom_vjp`` backward returns the float32
+    product's), so its gradients there are float32; PyTorch casts a
+    gradient to its leaf's dtype, so the port differentiates the float32
+    view (which fake-quant reads anyway).  A float32 leaf is itself (no
+    copy); every other leaf keeps its dtype and its gradient's."""
+    return tree_map(lambda leaf: leaf.to(torch.float32)
+                    if spec.recipe._quantizes(leaf) else leaf, params)
+
+
 def make_qat_train_step(cfg, shape, hp=None, n_micro=None, *, qat: QATSpec):
     """The QAT reading of ``steps.make_train_step`` (which delegates here).
 
@@ -186,8 +204,8 @@ def make_qat_train_step(cfg, shape, hp=None, n_micro=None, *, qat: QATSpec):
         batch = steps.to_device(batch, device)
         e = next_exponent(params, qat, qstate)
         active = qstate["step"] >= qat.config.start_step
-        loss, grads = steps.accumulate(loss_at, params, batch, n_micro,
-                                       e, active)
+        loss, grads = steps.accumulate(loss_at, grad_view(params, qat),
+                                       batch, n_micro, e, active)
         new_params, new_opt, metrics = adamw.update(
             grads, opt_state, params, hp, scan_stacked=cfg.scan_layers)
         metrics.update(loss=loss, weight_exponent=e,
