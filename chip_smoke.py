@@ -327,6 +327,31 @@ quickest proof that the port still builds and starts there:
                        softmax on granite-moe, the GELU on whisper); a
                        smoke LM's QAT run failing at step 5, resumed from
                        step 4 and ``torch.equal`` to an uninterrupted run.
+20. ``lm_scores_bf16`` the reference's bf16 score path (``scores_dtype``
+                       ``"bfloat16"``: the score product rounded to bf16,
+                       the exact softmax in bf16) on ``lm_internlm2``'s
+                       weights: a forward of 4 x 63 tokens on ``float``
+                       with bf16 and with float32 scores (the logits'
+                       max-abs gap and argmax agreement, the p50 of each),
+                       and on ``cuda`` the softmax kernel on every layer's
+                       bf16-rounded rows ``torch.equal`` to its plain
+                       version.
+21. ``examples``       the eight example twins (``repro_torch.examples``),
+                       each ``main`` in-process on the card with the
+                       reference's defaults but: quickstart, stream_kws
+                       and cell_flight_drill ``--backend cuda``,
+                       train_kws_qat ``--qat-backend cuda
+                       --check-backends``, quantize_eval on kwt-tiny and on
+                       internlm2-1.8b; each exits 0 (stream_kws hits every
+                       keyword, cell_soak's hop ledger is exact,
+                       train_kws_qat's export contract holds on ``cuda``),
+                       its wall time and printed lines recorded; each
+                       twin's launches equal the count worked out from its
+                       forwards and steps (the four KWT twins on ``cuda``
+                       launch the softmax, the GELU and the matmul; the
+                       others launch nothing); the first call of each
+                       kernel in the quickstart run ``torch.equal`` to its
+                       plain version on the same inputs.
 
    ``lm_dense_smoke`` (14) also runs the rwkv6-3b smoke config (and its
    fused-projection and padded-head variants) and the hymba-1.5b smoke
@@ -344,8 +369,9 @@ The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
 the train phases (11, 12), the LM server with its ``flash_lut`` forward
 (13), the int8-cache scheduler run (``lm_int8_kv``), the moe server
 (15), the two recurrent LMs' drain batches (16, 17) and the whisper
-clips with their ``flash_lut`` forward (18) and the LM launcher's runs
-(19: internlm2's float and QAT runs, the smoke LM's three) are the main
+clips with their ``flash_lut`` forward (18), the LM launcher's runs
+(19: internlm2's float and QAT runs, the smoke LM's three) and the
+example twins (21) are the main
 paths: the
 counters go to 0
 just before each group and are read just after it; the launches of the
@@ -4433,6 +4459,254 @@ def phase_train_lm(dev, tmp: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# the bf16 score path (ROADMAP A3.5)
+# ---------------------------------------------------------------------------
+
+SCORES_BF16_PROMPTS = (4, 63)
+SCORES_BF16_TIMED = 5
+
+
+def p50_forward_ms(eng, toks) -> float:
+    """p50 ms of ``eng.forward(toks)`` over SCORES_BF16_TIMED calls after
+    one warm-up."""
+    eng.forward(toks)
+    times = []
+    for _ in range(SCORES_BF16_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.forward(toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_lm_scores_bf16(dev, params) -> dict:
+    """internlm2-1.8b at full width on ``lm_internlm2``'s weights: a
+    forward of 4 x 63 tokens on ``float`` with ``scores_dtype`` bf16 and
+    float32 (max-abs gap, argmax agreement, p50 of each); on ``cuda`` with
+    bf16 scores, the softmax kernel on every layer's bf16-rounded rows
+    ``torch.equal`` to its plain version.  Its launches belong to no
+    path."""
+    cfg = registry.get(LM_NAME).config
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, SCORES_BF16_PROMPTS)
+                            .astype(np.int64)).to(dev)
+    f32 = runtime.compile_model(cfg, params, backend="float", device=dev)
+    bf16 = dataclasses.replace(
+        f32, exec_cfg=f32.exec_cfg.with_(scores_dtype="bfloat16"))
+    want = f32.forward(toks).float()
+    got = bf16.forward(toks).float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("bf16 scores: non-finite logits")
+    out = {"phase": "lm_scores_bf16", "model": cfg.name,
+           "tokens": list(SCORES_BF16_PROMPTS),
+           "logits_max_abs_gap": max_abs_err(got, want),
+           "logits_max_abs": float(want.abs().max()),
+           "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                 .float().mean()),
+           "p50_forward_ms_bf16": p50_forward_ms(bf16, toks),
+           "p50_forward_ms_float32": p50_forward_ms(f32, toks)}
+    del f32, bf16, got, want
+    eng = runtime.compile_model(cfg, params, backend="cuda", device=dev)
+    eng = dataclasses.replace(
+        eng, exec_cfg=eng.exec_cfg.with_(scores_dtype="bfloat16"))
+    with recorded(approx, "masked_softmax") as seen:
+        logits = eng.forward(toks)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bf16 scores on cuda: non-finite logits")
+    if len(seen) != cfg.n_layers or seen[0][0].dtype != torch.bfloat16:
+        raise AssertionError(f"recorded {len(seen)} softmax calls of "
+                             f"{seen[0][0].dtype if seen else None} scores")
+    for i, (s, mask, *_rest) in enumerate(seen):
+        require_equal(f"bf16 scores, masked softmax kernel, layer {i}",
+                      approx.masked_softmax(s, mask, mode="cuda"),
+                      masked_plain(s.float(), mask))
+    out["cuda_softmax"] = {"layers": len(seen), "scores": list(seen[0][0].shape),
+                           "dtype": "bfloat16", "equal": True}
+    del eng, seen, logits
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the example twins (ROADMAP A1)
+# ---------------------------------------------------------------------------
+
+# the twins' arguments on the card: the reference's defaults, but the KWT
+# twins on the cuda backend and quantize_eval on both arch families
+EXAMPLE_RUNS = [
+    ("quickstart", ["--backend", "cuda"]),
+    ("stream_kws", ["--backend", "cuda"]),
+    ("cell_flight_drill", ["--backend", "cuda"]),
+    ("train_kws_qat", ["--qat-backend", "cuda", "--check-backends"]),
+    ("quantize_eval", ["--arch", "kwt-tiny"]),
+    ("quantize_eval", ["--arch", "internlm2-1.8b"]),
+    ("serve_batched", []),
+    ("train_lm", []),
+    ("cell_soak", []),
+]
+# the defaults of the twins (and of the reference's examples) that set
+# how many forwards and steps each runs
+EVAL_BATCH = 64                  # data.pipeline.gsc_eval_set
+QUICKSTART_EVAL_N = 512
+STREAM_KWS_HOPS, STREAM_KWS_CHUNK = 400, 2
+DRILL_HOPS = 24
+QAT_TWIN_STEPS, QAT_TWIN_EVAL_N = 300, 512
+QAT_SELECT_N, QAT_SELECT_EVERY = 256, 25   # train_kws_qat.make_eval fold 5
+KERNEL_NAMES = ("lut_softmax", "lut_gelu", "int8_matmul", "lut_attention")
+
+
+def _plus(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def train_kws_qat_launches(cfg) -> dict:
+    """train_kws_qat on ``cuda`` with ``--check-backends``: integer
+    forwards (PTQ eval, QAT eval, the envelope's batch, the ``cuda`` row of
+    the backend matrix) launch every kernel; its QAT steps, the validation
+    selections (step 0, every QAT_SELECT_EVERY steps but the last, the
+    final one; a fold of QAT_SELECT_N) and the one QAT eval forward run
+    float products of fake-quant weights and launch the softmax and the
+    GELU only."""
+    evals = -(-QAT_TWIN_EVAL_N // EVAL_BATCH)
+    int_forwards = 3 * evals + 1
+    selects = 2 + sum(1 for i in range(QAT_TWIN_STEPS)
+                      if (i + 1) % QAT_SELECT_EVERY == 0
+                      and i != QAT_TWIN_STEPS - 1)
+    lut_forwards = selects * -(-QAT_SELECT_N // EVAL_BATCH) + 1
+    return _plus(expected_launches(cfg, int_forwards),
+                 train_launches(cfg, QAT_TWIN_STEPS + lut_forwards))
+
+
+def example_expected(name: str, argv: list) -> dict:
+    """Each twin's launches: a stream step or a lane hop as a forward;
+    cell_soak serves on ``lut`` (as the reference hard-codes) and the LM
+    twins on ``float`` / ``lut_float``: nothing."""
+    tiny = registry.get("kwt-tiny").config
+    if name == "quickstart":
+        return expected_launches(tiny, -(-QUICKSTART_EVAL_N // EVAL_BATCH))
+    if name == "stream_kws":
+        return expected_launches(tiny, STREAM_KWS_HOPS // STREAM_KWS_CHUNK)
+    if name == "cell_flight_drill":
+        from repro_torch.examples import cell_flight_drill
+        return expected_launches(registry.get("kwt-tiny").smoke,
+                                 DRILL_HOPS + cell_flight_drill.INCIDENT_HOPS)
+    if name == "train_kws_qat":
+        return train_kws_qat_launches(tiny)
+    return {k: 0 for k in KERNEL_NAMES}
+
+
+@contextlib.contextmanager
+def first_kernel_calls():
+    """While open, the first call of each kernel wrapper records its
+    arguments and output (cloned)."""
+    seen, saved = {}, {n: getattr(ops, n) for n in KERNEL_NAMES}
+
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().clone()
+        if isinstance(a, quant.QTensor):
+            return a.to(a.values.device)
+        return a
+
+    def wrap(name, fn):
+        def recording(*args, **kw):
+            y = fn(*args, **kw)
+            if name not in seen:
+                seen[name] = (tuple(clone(a) for a in args), dict(kw),
+                              y.detach().clone())
+            return y
+        return recording
+
+    for n, fn in saved.items():
+        setattr(ops, n, wrap(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def require_plain_equal(seen: dict, names) -> dict:
+    """Each recorded kernel call against the same wrapper on the same
+    inputs moved to the CPU, where it takes the kernel's plain version:
+    ``torch.equal``."""
+    out = {}
+    for name in names:
+        if name not in seen:
+            raise AssertionError(f"quickstart never called {name}")
+        args, kw, y = seen[name]
+        cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else
+                    a.to("cpu") if isinstance(a, quant.QTensor) else a
+                    for a in args)
+        with torch.inference_mode():
+            want = getattr(ops, name)(*cpu, **kw)
+        require_equal(f"quickstart's first {name} call", y.cpu(), want)
+        out[name] = {"shape": list(args[0].shape), "equal": True}
+    return out
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """``repro_torch.examples.<name>.main(argv + --device cuda)`` with its
+    output captured; returns rc, seconds and the printed lines (the
+    stream trainer's per-step log lines left out)."""
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = mod.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.strip() and not ln.startswith("event=train_step")]
+    return rc, seconds, lines
+
+
+def phase_examples(tmp: str) -> tuple:
+    """Every twin's ``main`` on the card (``EXAMPLE_RUNS``), each exiting 0
+    with its launches equal to ``example_expected``; quickstart's first
+    call of each kernel against its plain version.  Returns the path's
+    launches (every twin's), the checks' (none) and the expected."""
+    rows, path, expected = [], {k: 0 for k in KERNEL_NAMES}, \
+        {k: 0 for k in KERNEL_NAMES}
+    failures = []
+    plain = None
+    for name, argv in EXAMPLE_RUNS:
+        if name == "cell_flight_drill":
+            argv = argv + ["--dump-dir", os.path.join(tmp, "flight_dumps")]
+        before = ops.launch_counts()
+        if name == "quickstart":
+            with first_kernel_calls() as seen:
+                rc, seconds, lines = run_example(name, argv)
+            rose = _rise(before)
+            plain = require_plain_equal(seen, ("lut_softmax", "lut_gelu",
+                                               "int8_matmul"))
+        else:
+            rc, seconds, lines = run_example(name, argv)
+            rose = _rise(before)
+        want = example_expected(name, argv)
+        row = {"example": name, "argv": argv, "rc": rc, "seconds": seconds,
+               "launches": rose, "expected_launches": want,
+               "lines": lines[-40:]}
+        rows.append(row)
+        if rc != 0:
+            failures.append(f"{name} {argv} exited {rc}: {lines[-3:]}")
+        if rose != want:
+            failures.append(f"{name} launched {rose}, expected {want}")
+        path, expected = _plus(path, rose), _plus(expected, want)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"phase": "examples", "runs": rows, "quickstart_plain": plain,
+           "launches": path}
+    if failures:
+        out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return path, {k: 0 for k in KERNEL_NAMES}, expected
+
+
+# ---------------------------------------------------------------------------
 # the contract line
 # ---------------------------------------------------------------------------
 
@@ -4646,7 +4920,6 @@ def main() -> None:
     # KV cache, less the launches of the checks the phase makes after it
     ops.reset_launch_counts()
     kv_rose, kv_checks, kv_exp = phase_lm_int8_kv(dev, lm_params)
-    del lm_params
     counted = ops.launch_counts()
     launches["lm_int8_kv"] = {n: counted[n] - kv_checks[n] for n in counted}
     expected["lm_int8_kv"] = kv_exp
@@ -4656,6 +4929,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     seconds["lm_int8_kv"] = time.perf_counter() - t0
+    # the bf16 score path on the same weights: checks of no path
+    t0 = time.perf_counter()
+    phase_lm_scores_bf16(dev, lm_params)
+    del lm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["lm_scores_bf16"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_lm_smoke(dev)
     seconds["lm_dense_smoke"] = time.perf_counter() - t0
@@ -4719,6 +4999,21 @@ def main() -> None:
         raise AssertionError(f"train_lm launches {launches['train_lm']} are "
                              f"not those of its launcher runs, {rose}")
     seconds["train_lm"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the examples path: every twin's main on the card
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_",
+                                     dir=build.build_dir()) as tmp:
+        rose, echecks, eexp = phase_examples(tmp)
+    counted = ops.launch_counts()
+    launches["examples"] = {n: counted[n] - echecks[n] for n in counted}
+    expected["examples"] = eexp
+    if launches["examples"] != rose:
+        raise AssertionError(f"examples launches {launches['examples']} are "
+                             f"not those of its twins, {rose}")
+    seconds["examples"] = time.perf_counter() - t0
     emit({"phase": "seconds", "seconds": seconds,
           "total": time.perf_counter() - t_start})
 

@@ -36,9 +36,13 @@ Engine's taps pass is collecting.
 The LMs' activations are here too: the bounded-domain sigmoid LUT behind
 ``silu`` and ``softplus`` (the hybrid family's), and the squared ReLU.  As
 in the reference, neither SiLU nor softplus has a kernel: their ``cuda``
-mode is the LUT below.  Not ported yet: the bf16 exact-softmax branch,
-which no plan reaches while ``scores_dtype`` is float32 (ROADMAP queue A
-item 3).
+mode is the LUT below.
+
+``masked_softmax`` in ``exact`` mode keeps bf16 scores in bf16 (the
+reference's dtype-preserving branch, reached where ``cfg.scores_dtype`` is
+``"bfloat16"``): the row max and the denominator reduce in float32, the
+shift, ``exp`` and the final scale run in bf16.  Every other mode casts the
+scores to float32 first, as the reference's do.
 """
 
 from __future__ import annotations
@@ -277,6 +281,26 @@ _MASKED_PRIMALS = {"cuda": _masked_cuda, "lut": _masked_lut,
                    "lut_fixed": _masked_lut_fixed}
 
 
+def _masked_exact_bf16(s: torch.Tensor, mask: torch.Tensor | None
+                       ) -> torch.Tensor:
+    """The exact masked softmax of bf16 scores, in bf16 (the reference's
+    branch step for step): the select's fill is float32's min rounded to
+    bf16, the row max and the denominator are float32, ``exp`` and the
+    final product by the reciprocal are bf16.  A fully masked row comes
+    out zero.  ``amax`` shares the gradient among ties, as ``jnp.max``
+    does."""
+    neg = torch.tensor(torch.finfo(torch.float32).min,
+                       dtype=torch.float32).to(torch.bfloat16)
+    sm = s if mask is None else torch.where(mask, s, neg.to(s.device))
+    m = torch.amax(sm.to(torch.float32), dim=-1, keepdim=True)
+    p = torch.exp(sm - m.to(torch.bfloat16))
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), dtype=p.dtype,
+                                             device=p.device))
+    den = torch.sum(p.to(torch.float32), dim=-1, keepdim=True)
+    return p * (1.0 / torch.clamp(den, min=1e-30)).to(torch.bfloat16)
+
+
 def masked_softmax(s: torch.Tensor, mask: torch.Tensor | None,
                    mode: str = "exact") -> torch.Tensor:
     """Softmax over the last axis with *structural* masking.
@@ -285,10 +309,13 @@ def masked_softmax(s: torch.Tensor, mask: torch.Tensor | None,
     (they never reach the ROM), mirroring the paper's C pipeline which only
     computes valid entries — not approximated to e^{-10} by the clip.
     Rows that are fully masked return zeros.  The non-exact modes are
-    STEs whose backward is the exact masked softmax's gradient.
+    STEs whose backward is the exact masked softmax's gradient.  Exact
+    bf16 scores stay bf16 (:func:`_masked_exact_bf16`).
     """
     if _health.active():   # health tap; see softmax()
         _health.tap_softmax(s, mask, fixed=mode in ("lut_fixed", "cuda"))
+    if mode == "exact" and s.dtype == torch.bfloat16:
+        return _masked_exact_bf16(s, mask)
     s = s.to(torch.float32)
     if mode == "exact":
         return _masked_exact(s, mask)

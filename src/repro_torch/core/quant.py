@@ -17,10 +17,11 @@ contraction here goes through :func:`exact_int_matmul`, which widens to an
 exact container first.  Float32 contractions over integer grids rely on
 TF32 being off (``runtime.compile_model`` sets the flags).
 
-Not ported: the reference's ``matmul_unrolled`` / ``_SMALL_MACS`` pair,
-which exists only to steer XLA:CPU's thunk dispatch for tiny contractions
-and changes no value; the stochastic-rounding key of ``quantize_po2``
-and ``gather_descale`` (LM embeddings) wait for their slices.
+``matmul_unrolled`` is here, but ``int_exec_einsum`` does not route the
+reference's tiny contractions (``_SMALL_MACS``) through it (ROADMAP C13):
+the reference does so only to steer XLA:CPU's thunk dispatch, the routing
+changes no value, and on the card it would turn KWT-Tiny's head into 23
+more ATen launches.
 """
 
 from __future__ import annotations
@@ -42,6 +43,23 @@ INT16_MIN, INT16_MAX = -(2**15), 2**15 - 1
 # 2^(wbits-1) stays under this, an f32 GEMM over integer grids is
 # bit-equal to int32 accumulation in any summation order (TF32 off).
 _F32_EXACT = 1 << 24
+
+# The reference unrolls contractions of at most this many MACs
+# (``matmul_unrolled``) to steer XLA:CPU's thunk dispatch; the port keeps
+# the constant for its cost model's tests and routes nothing by it (C13).
+_SMALL_MACS = 8192
+
+
+def matmul_unrolled(xq: torch.Tensor, wi: torch.Tensor, k: int) -> torch.Tensor:
+    """K-loop of a trivial contraction unrolled into elementwise
+    multiply-adds: ``xq[..., :k] @ wi[:k]`` as a chain of ``k`` products
+    and ``k - 1`` sums.  Over integer grids under ``_F32_EXACT`` every
+    partial sum is exact, so it equals the product bit for bit.  Its frame
+    name lets ``perf.cost`` price the chain as matmul MACs."""
+    acc = xq[..., 0:1] * wi[0]
+    for i in range(1, k):
+        acc = acc + xq[..., i:i + 1] * wi[i]
+    return acc
 
 
 def int_range(bits: int) -> tuple[int, int]:
@@ -181,7 +199,7 @@ class QTensor:
 
 
 def quantize_po2(w: torch.Tensor, exponent: int, *, bits: int = 8,
-                 rounding: str = "floor") -> QTensor:
+                 stochastic_key=None, rounding: str = "floor") -> QTensor:
     """eq 9: floor(w * 2^y) with saturation to the ``bits``-wide int range.
 
     ``rounding="nearest"`` adds the half-LSB offset before the floor (an
@@ -192,15 +210,25 @@ def quantize_po2(w: torch.Tensor, exponent: int, *, bits: int = 8,
     Storage is the narrowest dtype for ``bits`` (int8 up to 8 bits,
     nibble-packed below 5), and saturation clips at the true ``bits``-wide
     edges (e.g. [-8, 7] at 4 bits).
+
+    ``stochastic_key`` (a ``data.prng`` key, numpy ``uint32[2]``) rounds
+    stochastically instead: ``floor(w * 2^y + u)`` with ``u`` uniform in
+    [0, 1) drawn by ``prng.uniform(key, w.shape)``, the reference's
+    ``jax.random.uniform`` bit for bit; it takes precedence over
+    ``rounding``.
     """
     lo, hi = int_range(bits)
     scaled = w.to(torch.float32) * (2.0 ** exponent)
-    if rounding == "nearest":
-        q = torch.floor(scaled + 0.5)
-    elif rounding == "floor":
-        q = torch.floor(scaled)
-    else:
+    if rounding not in ("floor", "nearest"):
         raise ValueError(f"unknown rounding {rounding!r}")
+    if stochastic_key is not None:
+        from repro_torch.data import prng
+        noise = torch.from_numpy(prng.uniform(stochastic_key, tuple(w.shape)))
+        q = torch.floor(scaled + noise.to(scaled.device))
+    elif rounding == "nearest":
+        q = torch.floor(scaled + 0.5)
+    else:
+        q = torch.floor(scaled)
     return QTensor.store(q.clamp(lo, hi), exponent, bits=bits)
 
 

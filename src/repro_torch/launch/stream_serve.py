@@ -57,15 +57,18 @@ def frontend_for(cfg) -> features.FrontendConfig:
     return features.FrontendConfig(n_mfcc=cfg.input_dim[0])
 
 
-def train_params(cfg, fcfg, n_steps: int, seed: int, device=None):
+def train_params(cfg, fcfg, n_steps: int, seed: int, device=None,
+                 init=None):
     """Quick end-to-end float training from raw audio (waveform -> MFCC ->
     KWT) through ``steps.make_train_step``, so served detections are
     meaningful; ``n_steps=0`` returns random init.  The initial weights
     come from a ``torch.Generator`` seeded with ``seed`` (the reference's
-    from ``jax.random``); the audio is the reference's
+    from ``jax.random``) unless ``init`` gives them (a tree on
+    ``device``); the audio is the reference's
     (``data.pipeline.keyword_audio_batch``)."""
     device = resolve_device(device)
-    params = kwt.init_params(cfg, torch.Generator().manual_seed(seed), device)
+    params = init if init is not None else \
+        kwt.init_params(cfg, torch.Generator().manual_seed(seed), device)
     if n_steps <= 0:
         return params
     from repro_torch.configs.base import ShapeSpec

@@ -248,13 +248,20 @@ def _sdpa_block(q, k, v, cfg, *, q0, k0, q_offset, kv_len_valid, causal):
     Both products take float32 operands (the reference multiplies the
     model-dtype operands with float32 accumulation: the same products);
     the probabilities are rounded to V's dtype before P·V, as there.
+    Where ``cfg.scores_dtype`` is ``"bfloat16"`` the score product is
+    rounded to bf16 and scaled in bf16 (the reference's
+    ``preferred_element_type``), and the exact softmax keeps it bf16.
     """
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
     qf = q.reshape(b, sq, kv, g, dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", _f32(qf), _f32(k))
-    s = s * (dh ** -0.5)
+    if cfg.scores_dtype == "float32":
+        s = s * (dh ** -0.5)
+    else:
+        sdt = getattr(torch, cfg.scores_dtype)
+        s = s.to(sdt) * torch.tensor(dh ** -0.5, dtype=sdt, device=s.device)
     # mask stays None when nothing masks (full bidirectional attention,
     # e.g. KWT): the softmax paths then skip the select ops entirely and
     # the cuda mode is the raw kernel output, bit-identical to

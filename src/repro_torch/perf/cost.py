@@ -116,9 +116,11 @@ _OP_BY_FUNC = {
     # product still classifies as matmul by op fallback)
     "requant": ("quantize_act", "requant", "int_container",
                 "gather_descale"),
-    # the reference's unrolled multiply-add chain has no counterpart: the
-    # port's integer products are always one product
-    "matmul": (),
+    # an elementwise multiply-add chain (quant.matmul_unrolled): still the
+    # linear algebra, priced as MACs in program_cost so matmul_flops stays
+    # 2*M*N*K, as for the product it equals (int_exec_einsum does not
+    # route through it: ROADMAP C13)
+    "matmul": ("matmul_unrolled",),
 }
 _OP_OF_FUNC = {fn: op for op, fns in _OP_BY_FUNC.items() for fn in fns}
 
@@ -482,7 +484,13 @@ def program_cost(fn, *args, stage: str = "forward") -> CostReport:
     for rec in records:
         flops, nbytes = op_flops(rec), op_bytes(rec)
         if flops or nbytes:        # layout ops and allocations: no line
-            rep.add(*classify(rec, stage), flops, nbytes)
+            where, op = classify(rec, stage)
+            name = _base(rec.name)
+            if op == "matmul" and name in _ELEMENTWISE and not rec.einsum:
+                # the unrolled MAC chain: each product a multiply-add (2
+                # flops), the sums already priced in, 2*M*N*K in all
+                flops = 2.0 * flops if name == "mul" else 0.0
+            rep.add(where, op, flops, nbytes)
     return rep
 
 

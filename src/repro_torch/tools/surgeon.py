@@ -5,11 +5,20 @@ inference accuracy were removed.  These were found to be the depth
 layers."  This tool scores each transformer block by the loss increase
 when it is ablated (identity-bypassed) on a calibration set, and emits the
 removal ranking that drives a KWT-1 -> KWT-Tiny style shrink.
+
+  PYTHONPATH=src python -m repro_torch.tools.surgeon [--device cpu]
+
+demos it on a 4-layer KWT-1; without ``--device`` it runs on the card and
+raises where there is none.
 """
 
 from __future__ import annotations
 
+import argparse
+
 import torch
+
+from repro_torch.models import kwt
 
 
 @torch.no_grad()
@@ -51,3 +60,48 @@ def shrink_params(params, scores, keep: int):
     if len(blocks) != keep:
         raise ValueError(f"kept {len(blocks)} blocks, asked for {keep}")
     return {**params, "blocks": blocks}
+
+
+def report(params, cfg, batches) -> list:
+    """The demo's lines for ``params``: base loss, each block's ablation
+    score, the removal order for a depth-1 target and the shrunk tree's
+    size.  Returns the removal order."""
+    base, scores = ablation_scores(params, cfg, batches, kwt.loss_fn)
+    print(f"base loss {base:.4f}")
+    for i, d in scores:
+        print(f"block {i}: +{d:.5f} loss when ablated")
+    order = shrink_plan(scores, keep=1)
+    print("remove order for depth=1 target:", order)
+    shrunk = shrink_params(params, scores, keep=1)
+    print(f"shrunk tree: {len(shrunk['blocks'])} block(s), "
+          f"{kwt.count_params(shrunk)} params (from {kwt.count_params(params)})")
+    return order
+
+
+def demo_batches(cfg, device) -> list:
+    """The demo's calibration set: two keyword batches of 32."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+
+    return [steps.to_device(pipeline.keyword_batch(
+        0, i, batch=32, input_dim=cfg.input_dim, n_classes=cfg.n_classes),
+        device) for i in range(2)]
+
+
+def main(argv=None) -> int:
+    from repro_torch.configs import registry
+    from repro_torch.device import resolve_device
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = registry.get("kwt-1").config.with_(n_layers=4)
+    params = kwt.init_params(cfg, torch.Generator().manual_seed(0), device)
+    report(params, cfg, demo_batches(cfg, device))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
