@@ -352,6 +352,50 @@ quickest proof that the port still builds and starts there:
                        others launch nothing); the first call of each
                        kernel in the quickstart run ``torch.equal`` to its
                        plain version on the same inputs.
+22. ``analysis``       the static-analysis passes (``repro_torch.analysis``)
+                       on the card: ``check_engine`` on KWT-Tiny and KWT-1
+                       (full width, numpy-seeded weights) under ``float``,
+                       ``lut`` and ``cuda`` (``xla`` and ``flash_lut``) and
+                       on internlm2-1.8b at full width on ``cuda``
+                       (``lm_internlm2``'s weights), each verdict and every
+                       pass's metrics equal to the same plan on the CPU
+                       (the ``cuda`` plans through their kernels' plain
+                       versions); every plan PASS, the integer plans'
+                       ``float_leak_count`` 0, KWT-Tiny ``lut`` inside the
+                       64 kB gate; each ``cuda`` plan's kernel geometry
+                       rows (the launchers' C queries) equal to the CPU's
+                       (the Python mirrors); ``float_leak`` and ``unsat_shift`` make their
+                       pass FAIL on KWT-Tiny ``lut`` and ``cuda``,
+                       ``big_lut`` the budget on ``lut`` (``cuda``: its
+                       table is information only); the CLI ``python -m
+                       repro_torch.analysis check`` exits 0 clean and 1
+                       under each mutation.  Its path's launches are those
+                       of ``check_engine`` on the card's ``cuda`` plans:
+                       four forwards a KWT plan (residency runs the
+                       forward, ``embed_frames`` and ``encode_window``;
+                       budget and geometry one forward each), three an LM.
+23. ``compress``       the error-feedback compressed gradient sync
+                       (``repro_torch.dist.compress``) on the card: the
+                       sync of KWT-1's weights and residuals, int8 and
+                       int4, per tensor and per channel, ``torch.equal``
+                       to the CPU's on the same leaves, with ``Q(c) + e' =
+                       c`` exact; internlm2-1.8b at full width trained 3
+                       steps of 8 x 256 tokens by ``launch.train
+                       --compressed-grads --grad-bits 4
+                       --per-channel-scales`` (peak memory, p50 a step, the
+                       sync alone timed on the run's weights and residuals),
+                       and KWT-1 QAT on ``--qat-backend cuda`` with and
+                       without ``--compressed-grads`` (the compressed run
+                       is the path; the p50s side by side).
+24. ``geometry_mirror`` every launch of the kernel table's untimed checks
+                       (3) and of the analysis phase (22), logged by
+                       ``kernels._launch.LOG`` (pointers by their
+                       alignment), held to its kernel's C geometry query:
+                       each wrapper's Python mirror (``geometry``) gives
+                       the launcher's grid, threads, shared memory and
+                       variant, with the card's occupancy, at every shape.
+                       The log is off in every other phase and inside
+                       every timing, so no timed launch pays for it.
 
    ``lm_dense_smoke`` (14) also runs the rwkv6-3b smoke config (and its
    fused-projection and padded-head variants) and the hymba-1.5b smoke
@@ -443,7 +487,14 @@ from repro_torch.configs.base import QuantConfig, ShapeSpec  # noqa: E402
 from repro_torch.core import approx, quant  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
+from repro_torch import analysis  # noqa: E402
+from repro_torch.analysis import geometry as an_geometry  # noqa: E402
+from repro_torch.analysis import mutations as an_mutations  # noqa: E402
+from repro_torch.analysis.__main__ import main as analysis_cli  # noqa: E402
+from repro_torch.dist import compress  # noqa: E402
+from repro_torch.kernels import _launch as kernel_launch  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import stream_serve  # noqa: E402
@@ -519,6 +570,24 @@ def emit(obj) -> None:
             fh.write(line + "\n")
 
 
+# the launches phase 24 holds to their geometry queries
+GEO_LOG: set = set()
+
+
+@contextlib.contextmanager
+def launch_log(on: bool):
+    """Inside the block every launch is logged into GEO_LOG (``on``) or
+    none is: the log is on around the untimed checks of the kernel table
+    and the analysis phase only, and off inside every timing."""
+    prev = kernel_launch.LOG
+    kernel_launch.LOG = GEO_LOG if on else None
+    try:
+        yield
+    finally:
+        kernel_launch.LOG = prev
+
+
+@launch_log(False)
 def time_ms(fn, numel_hint: int) -> float:
     """Median milliseconds of one call: events around runs of calls."""
     per_run = 20 if numel_hint < (1 << 22) else 4
@@ -538,6 +607,7 @@ def time_ms(fn, numel_hint: int) -> float:
     return statistics.median(runs)
 
 
+@launch_log(False)
 def device_ms(fn, numel_hint: int) -> float:
     """Median milliseconds of one call on the device alone: a run of calls
     captured in a CUDA graph, the replays timed with events.  The wrappers
@@ -4748,6 +4818,316 @@ def _variants(rows: list, model: str, batch: int, tag) -> list:
     return list(out.values())
 
 
+# ---------------------------------------------------------------------------
+# phases 22 - 24: the analysis passes, the compressed sync, the mirrors
+# ---------------------------------------------------------------------------
+
+ANALYSIS_KWT_PLANS = [("float", None), ("lut", None), ("cuda", "xla"),
+                      ("cuda", "flash_lut")]
+# a cuda KWT plan's check_engine: residency's forward + embed_frames +
+# encode_window (one forward's launches between them), budget's and
+# geometry's forwards; an LM's: residency, budget and geometry forwards
+ANALYSIS_KWT_FORWARDS, ANALYSIS_LM_FORWARDS = 4, 3
+
+
+def engine_on_cpu(eng):
+    """The same plan with its (already planned) params on the CPU: a
+    ``cuda`` plan there runs its kernels' plain versions."""
+    cpu = torch.device("cpu")
+    params = tree_map(lambda t: t if t is None else t.to(cpu), eng.params)
+    return dataclasses.replace(eng, params=params, device=cpu)
+
+
+def analysis_summary(rep) -> dict:
+    return {"verdict": rep.verdict(),
+            "metrics": {r.name: r.metrics for r in rep.results},
+            "violations": [f.render() for r in rep.results
+                           for f in r.findings if f.severity == "violation"],
+            "geometry_rows": [f.message for f in
+                              rep.result("geometry").findings
+                              if f.kind == "kernel-geometry"]}
+
+
+def check_plan_analysis(what: str, eng, cpu_eng) -> dict:
+    """check_engine on the card plan and on the same plan on the CPU:
+    PASS, the verdict, every metric and the geometry rows equal (the
+    card's from the launchers' C queries, the CPU's from their Python
+    mirrors and the H100 occupancy model)."""
+    card = analysis.check_engine(eng)
+    cpu = analysis.check_engine(cpu_eng)
+    a, b = analysis_summary(card), analysis_summary(cpu)
+    if not card.ok:
+        raise AssertionError(f"analysis of {what} on the card fails:\n"
+                             + card.render())
+    if a != b:
+        raise AssertionError(f"analysis of {what}: card {a} != cpu {b}")
+    if eng.int_resident and a["metrics"]["residency"]["float_leak_count"]:
+        raise AssertionError(f"{what}: float_leak_count "
+                             f"{a['metrics']['residency']}")
+    return a
+
+
+def check_mutations_on_card(eng, backend: str) -> dict:
+    """Each mutation on the card plan where it gates: its pass FAILs."""
+    out = {}
+    gates = {"float_leak": "residency", "unsat_shift": "ranges",
+             "big_lut": "budget"}
+    for name, pass_name in gates.items():
+        with an_mutations.apply(name):
+            rep = analysis.check_engine(eng, passes=(pass_name,))
+        caught = not rep.result(pass_name).ok
+        out[name] = caught
+        gated = backend == "lut" or name != "big_lut"
+        if caught != gated:
+            raise AssertionError(f"mutation {name} on {backend}: caught "
+                                 f"{caught}, expected {gated}")
+    if not analysis.check_engine(eng).ok:
+        raise AssertionError(f"{backend}: not clean after the mutations")
+    return out
+
+
+def run_analysis_cli(argv: list) -> int:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = analysis_cli(argv)
+    if ("seeded:" in buf.getvalue()) != ("--mutate" in argv):
+        raise AssertionError(f"analysis CLI {argv}: {buf.getvalue()[-400:]}")
+    return code
+
+
+def phase_analysis(dev, lm_params) -> tuple:
+    """Phase 22 (see the module docstring).  Returns the path's launches
+    (check_engine on the card's cuda plans), the launches of the checks
+    (the mutations and the CLI) and the path's expected."""
+    out = {"phase": "analysis", "plans": {}}
+    rose = {n: 0 for n in ops.launch_counts()}
+    exp = dict(rose)
+    for name in ("kwt-tiny", "kwt-1"):
+        cfg = registry.get(name).config
+        np_tree = seeded_params(cfg, 0, dev)
+        card_p = convert.from_numpy_tree(np_tree, dev)
+        cpu_p = convert.from_numpy_tree(np_tree, "cpu")
+        for backend, attention in ANALYSIS_KWT_PLANS:
+            eng = runtime.compile_model(cfg, card_p, backend=backend,
+                                        device=dev, attention=attention)
+            cpu_eng = runtime.compile_model(
+                cfg, cpu_p, backend=backend, device="cpu",
+                attention=attention, plain_kernels=backend == "cuda")
+            before = ops.launch_counts()
+            row = check_plan_analysis(f"{name}/{backend}", eng, cpu_eng)
+            got = _rise(before)
+            want = expected_launches(cfg, ANALYSIS_KWT_FORWARDS, attention) \
+                if backend == "cuda" else {n: 0 for n in rose}
+            if got != want:
+                raise AssertionError(f"analysis of {name}/{backend}/"
+                                     f"{attention} launched {got}, expected "
+                                     f"{want}")
+            for n in rose:
+                rose[n] += got[n]
+                exp[n] += want[n]
+            if name == "kwt-tiny" and backend == "lut":
+                bud = row["metrics"]["budget"]
+                if not 0 < bud["total_bytes"] <= bud["budget_bytes"] == 65536:
+                    raise AssertionError(f"KWT-Tiny lut budget {bud}")
+            out["plans"][f"{name}/{backend}/{attention or 'xla'}"] = row
+    # internlm2-1.8b at full width on cuda
+    cfg = registry.get(LM_NAME).config
+    eng = runtime.compile_model(cfg, lm_params, backend="cuda", device=dev)
+    cpu_eng = engine_on_cpu(eng)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out["plans"][f"{LM_NAME}/cuda/xla"] = check_plan_analysis(
+        f"{LM_NAME}/cuda", eng, cpu_eng)
+    out["seconds_lm_check"] = time.perf_counter() - t0
+    got = _rise(before)
+    want = lm_expected(cfg, ANALYSIS_LM_FORWARDS)
+    if got != want:
+        raise AssertionError(f"analysis of {LM_NAME} launched {got}, "
+                             f"expected {want}")
+    for n in rose:
+        rose[n] += got[n]
+        exp[n] += want[n]
+    del eng, cpu_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the checks: mutations on KWT-Tiny's card plans, the CLI
+    before = ops.launch_counts()
+    cfg = registry.get("kwt-tiny").config
+    card_p = convert.from_numpy_tree(seeded_params(cfg, 0, dev), dev)
+    out["mutations"] = {
+        backend: check_mutations_on_card(
+            runtime.compile_model(cfg, card_p, backend=backend, device=dev),
+            backend) for backend in ("lut", "cuda")}
+    cli = {}
+    for backend in ("lut", "cuda"):
+        base = ["check", "--config", "kwt_tiny", "--backend", backend]
+        cli[backend] = {"clean": run_analysis_cli(base)}
+        for mut in an_mutations.MUTATIONS:
+            cli[backend][mut] = run_analysis_cli(base + ["--mutate", mut])
+        want_rc = {"clean": 0, "float_leak": 1, "unsat_shift": 1,
+                   "big_lut": 1 if backend == "lut" else 0}
+        if cli[backend] != want_rc:
+            raise AssertionError(f"analysis CLI on {backend}: {cli[backend]}")
+    out["cli"] = cli
+    checks = _rise(before)
+    out["launches"], out["check_launches"] = rose, checks
+    emit(out)
+    return rose, checks, exp
+
+
+COMPRESS_LM_ARGS = ["--arch", LM_NAME, "--steps", "3", "--global-batch", "8",
+                    "--seq-len", "256", "--seed", "0", "--compressed-grads",
+                    "--grad-bits", "4", "--per-channel-scales"]
+COMPRESS_KWT1_ARGS = TRAIN_KWT1_ARGS + ["--compressed-grads"]
+COMPRESS_TIMED = 3            # sync calls timed (p50)
+
+
+def time_sync(grads, err, per_channel: bool, bits: int) -> float:
+    """p50 ms of one compressed_grad_sync of ``grads`` on the card."""
+    mesh = mesh_mod.make_host_mesh()
+    times = []
+    for _ in range(COMPRESS_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compress.compressed_grad_sync(grads, err, mesh,
+                                      per_channel=per_channel, bits=bits)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def watch_sync_memory(calls: list):
+    """Inside the block each ``compress.compressed_grad_sync`` call appends
+    to ``calls`` the card's bytes allocated at its entry and exit, its
+    peak within, and the peak of the stretch before it (since the last
+    sync, or the block's start): where a step's peak lies."""
+    real = compress.compressed_grad_sync
+
+    def watched(*args, **kwargs):
+        calls.append({"peak_before": torch.cuda.max_memory_allocated(),
+                      "at_entry": torch.cuda.memory_allocated()})
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*args, **kwargs)
+        calls[-1].update(peak_within=torch.cuda.max_memory_allocated(),
+                         at_exit=torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+    compress.compressed_grad_sync = watched
+    try:
+        yield
+    finally:
+        compress.compressed_grad_sync = real
+
+
+def check_sync_card_vs_cpu(params, err) -> dict:
+    """The sync of ``params`` (as gradients) with residuals ``err`` on the
+    card and on the CPU: synced leaves and new residuals torch.equal, and
+    ``synced + e' == g + e`` exactly on the card."""
+    mesh = mesh_mod.make_host_mesh()
+    cpu = torch.device("cpu")
+    g_cpu = tree_map(lambda t: t.to(cpu), params)
+    e_cpu = tree_map(lambda t: t.to(cpu), err)
+    rows = {}
+    for bits in (8, 4):
+        for per_channel in (False, True):
+            s1, e1 = compress.compressed_grad_sync(
+                params, err, mesh, per_channel=per_channel, bits=bits)
+            s2, e2 = compress.compressed_grad_sync(
+                g_cpu, e_cpu, mesh, per_channel=per_channel, bits=bits)
+            equal = all(torch.equal(a.cpu(), b) for a, b in
+                        zip(tree_leaves(s1) + tree_leaves(e1),
+                            tree_leaves(s2) + tree_leaves(e2)))
+            identity = all(torch.equal(s + e, g.float() + e0) for s, e, g, e0
+                           in zip(tree_leaves(s1), tree_leaves(e1),
+                                  tree_leaves(params), tree_leaves(err)))
+            if not (equal and identity):
+                raise AssertionError(f"compressed sync at {bits} bits, per "
+                                     f"channel {per_channel}: card == cpu "
+                                     f"{equal}, Q(c) + e' == c {identity}")
+            rows[f"int{bits}{'_per_channel' if per_channel else ''}"] = {
+                "card_equals_cpu": equal, "identity": identity}
+    return rows
+
+
+def phase_compress(dev) -> tuple:
+    """Phase 23 (see the module docstring).  Returns the path's launches
+    (the compressed KWT-1 QAT run), the checks' and the path's expected."""
+    out = {"phase": "compress"}
+    cfg = registry.get("kwt-1").config
+    before = ops.launch_counts()
+    result, _ = run_main(COMPRESS_KWT1_ARGS)
+    path = _rise(before)
+    n_steps = int(COMPRESS_KWT1_ARGS[COMPRESS_KWT1_ARGS.index("--steps") + 1])
+    expected = train_launches(cfg, n_steps)
+    if path != expected:
+        raise AssertionError(f"the compressed KWT-1 run launched {path}, "
+                             f"expected {expected}")
+    if not all(np.isfinite(result.losses)) or result.err is None:
+        raise AssertionError(f"compressed KWT-1 losses {result.losses}")
+    before = ops.launch_counts()
+    plain, _ = run_main(TRAIN_KWT1_ARGS)
+    out["kwt_1"] = {
+        "argv": COMPRESS_KWT1_ARGS, "losses": result.losses,
+        "p50_ms_per_step": statistics.median(result.step_ms),
+        "p50_ms_per_step_uncompressed": statistics.median(plain.step_ms),
+        "sync_ms_int8": time_sync(result.params, result.err, False, 8),
+        "card_vs_cpu": check_sync_card_vs_cpu(result.params, result.err)}
+    checks = _rise(before)
+    del result, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    # internlm2-1.8b at full width: 3 steps with the int4 per-channel sync
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    syncs = []
+    with watch_sync_memory(syncs):
+        result, _ = run_main(COMPRESS_LM_ARGS)
+    after = torch.cuda.max_memory_allocated()
+    peak = max([after] + [max(c["peak_before"], c["peak_within"])
+                          for c in syncs])
+    if not all(np.isfinite(result.losses)) or len(result.losses) != 3:
+        raise AssertionError(f"{LM_NAME} compressed losses {result.losses}")
+    err_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(result.err))
+    before = ops.launch_counts()
+    out["internlm2"] = {
+        "argv": COMPRESS_LM_ARGS, "losses": result.losses,
+        "step_ms": result.step_ms,
+        "p50_ms_per_step": statistics.median(result.step_ms),
+        "peak_gb": peak / 1e9, "err_state_gb": err_bytes / 1e9,
+        "sync_memory_gb": [{k: v / 1e9 for k, v in c.items()}
+                           for c in syncs],
+        "peak_gb_after_last_sync": after / 1e9,
+        "seconds": time.perf_counter() - t0,
+        "sync_ms_int4_per_channel": time_sync(result.params, result.err,
+                                              True, 4)}
+    lm_checks = _rise(before)
+    checks = {n: checks[n] + lm_checks[n] for n in checks}
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"], out["check_launches"] = path, checks
+    emit(out)
+    return path, checks, expected
+
+
+def phase_geometry_mirror(dev) -> None:
+    """Phase 24: every launch of this run against its kernel's C query."""
+    t0 = time.perf_counter()
+    rows = an_geometry.check_launch_log(GEO_LOG, dev)
+    out = {"phase": "geometry_mirror",
+           "kernels": {k: {"shapes": v["shapes"],
+                           "mismatches": len(v["mismatches"])}
+                       for k, v in rows.items()},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    bad = {k: v["mismatches"][:3] for k, v in rows.items() if v["mismatches"]}
+    if bad or set(rows) != set(SOURCES):
+        raise AssertionError(f"geometry mirror != C query: {bad}, kernels "
+                             f"{sorted(rows)}")
+
+
 def kernels_line(rows: dict, launches: dict, expected: dict,
                  headline_model: str, headline_batch: int) -> dict:
     """One entry per kernel.  The headline numbers are those of the
@@ -4826,7 +5206,8 @@ def main() -> None:
     seconds["build"] = time.perf_counter() - t_start
     t0 = time.perf_counter()
     tiny, kwt1 = registry.get("kwt-tiny").config, registry.get("kwt-1").config
-    rows = phase_kernels(dev, (tiny, kwt1))
+    with launch_log(True):
+        rows = phase_kernels(dev, (tiny, kwt1))
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     roof = phase_perf(dev, info)
@@ -4932,10 +5313,24 @@ def main() -> None:
     # the bf16 score path on the same weights: checks of no path
     t0 = time.perf_counter()
     phase_lm_scores_bf16(dev, lm_params)
+    seconds["lm_scores_bf16"] = time.perf_counter() - t0
+    # the analysis path: check_engine on the card's cuda plans (KWT and
+    # the same internlm2 weights), less the launches of the mutation and
+    # CLI checks
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with launch_log(True):
+        a_rose, a_checks, a_exp = phase_analysis(dev, lm_params)
+    counted = ops.launch_counts()
+    launches["analysis"] = {n: counted[n] - a_checks[n] for n in counted}
+    expected["analysis"] = a_exp
+    if launches["analysis"] != a_rose:
+        raise AssertionError(f"analysis launches {launches['analysis']} are "
+                             f"not those of its check_engine runs, {a_rose}")
+    seconds["analysis"] = time.perf_counter() - t0
     del lm_params
     gc.collect()
     torch.cuda.empty_cache()
-    seconds["lm_scores_bf16"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_lm_smoke(dev)
     seconds["lm_dense_smoke"] = time.perf_counter() - t0
@@ -5001,6 +5396,19 @@ def main() -> None:
     seconds["train_lm"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
+    # the compress path: the compressed KWT-1 QAT run, less the launches of
+    # the checks (the uncompressed run, the card-vs-CPU syncs) and of the
+    # internlm2 compressed run (float: it launches nothing)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    c_rose, c_checks, c_exp = phase_compress(dev)
+    counted = ops.launch_counts()
+    launches["compress"] = {n: counted[n] - c_checks[n] for n in counted}
+    expected["compress"] = c_exp
+    if launches["compress"] != c_rose:
+        raise AssertionError(f"compress launches {launches['compress']} are "
+                             f"not those of its compressed run, {c_rose}")
+    seconds["compress"] = time.perf_counter() - t0
     # the examples path: every twin's main on the card
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -5014,6 +5422,9 @@ def main() -> None:
         raise AssertionError(f"examples launches {launches['examples']} are "
                              f"not those of its twins, {rose}")
     seconds["examples"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_geometry_mirror(dev)
+    seconds["geometry_mirror"] = time.perf_counter() - t0
     emit({"phase": "seconds", "seconds": seconds,
           "total": time.perf_counter() - t_start})
 

@@ -22,6 +22,22 @@ kernel itself is launched through ``ctypes`` and no dispatch mode sees
 it; on the CPU the wrapper takes its plain version, whose ATen ops are
 muted, so a ``cuda`` plan records the same on either device.
 
+**Dataflow.** The verification passes (:mod:`repro_torch.analysis`) need
+to know which tensor feeds which op: :func:`walk` records the same ops
+with a tensor identity on every input and output (``in_ids`` /
+``out_ids``), the op itself and its arguments with each tensor replaced by
+a :class:`Ref`.  Identity is per tensor object; a view (an op whose
+schema returns an alias of its input) is given its base's **buffer**, so
+that liveness can charge a view nothing and keep its base alive.  A
+kernel charge carries its operands' and results' identities too, so
+taint and liveness flow through a kernel launched by ``ctypes`` whose own
+ops are muted.  With ``values=True`` every tensor that does not depend on
+the walk's declared inputs — one no recorded op produced (the LUT
+tables, constants), or one an op computed from such tensors only — is
+kept with its concrete min/max (the reference's constvars).  A walk
+records only the branch its inputs take: the analysed functions branch
+on Python values (shapes, modes, exponents), never on tensor data.
+
 The helper names are the reference's: :func:`user_frames`,
 :func:`frame_functions`, :func:`user_site` and :func:`tensor_bytes` (the
 counterpart of ``aval_bytes``).
@@ -32,12 +48,14 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-from typing import Optional
+import weakref
+from typing import Any, Optional
 
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_map as _pytree_map
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PREFIX = _PKG_DIR + os.sep
@@ -86,6 +104,22 @@ class OpRecord:
     charge: Optional[tuple] = None
     scalars: int = 0
     einsum: bool = False
+    # dataflow walks (:func:`walk`) only: the identity of each input and
+    # output tensor, the op, its arguments (tensors as :class:`Ref`); and,
+    # on a kernel charge, ``(kernel name, launch geometry)``
+    in_ids: tuple = ()
+    out_ids: tuple = ()
+    func: Any = None
+    args: tuple = ()
+    kwargs: Any = None
+    launch: Optional[tuple] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Ref:
+    """A tensor argument of a dataflow record: its identity."""
+
+    ident: int
 
 
 def _is_repo(filename: str) -> bool:
@@ -119,16 +153,107 @@ def _metas(tree) -> tuple:
 
 
 _POW_SCALAR = torch.ops.aten.pow.Tensor_Scalar
+_VIEW_OPS: dict = {}         # OpOverload -> returns an alias of an input
+
+
+def _is_view_op(func) -> bool:
+    hit = _VIEW_OPS.get(func)
+    if hit is None:
+        hit = _VIEW_OPS[func] = any(
+            r.alias_info is not None and not r.alias_info.is_write
+            for r in func._schema.returns)
+    return hit
+
+
+def _tensors(tree) -> list:
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def concrete(t: torch.Tensor) -> tuple:
+    """``(min, max)`` of a tensor's values as Python numbers (``(0, 0)``
+    when empty)."""
+    if t.numel() == 0:
+        return (0, 0)
+    if t.dtype == torch.bool:
+        return (int(t.min()), int(t.max()))
+    lo, hi = t.min().item(), t.max().item()
+    return (lo, hi)
 
 
 class Recorder(TorchDispatchMode):
-    """Appends one :class:`OpRecord` per ATen op while not muted."""
+    """Appends one :class:`OpRecord` per ATen op while not muted; with
+    ``dataflow`` set, with identities (module docstring)."""
 
-    def __init__(self):
+    def __init__(self, dataflow: bool = False, values: bool = False):
         super().__init__()
         self.records: list = []
         self.muted = 0
         self.einsum = 0          # depth of torch.einsum calls in progress
+        self.dataflow = dataflow or values
+        self.values = values
+        self._ids: dict = {}     # id(tensor) -> (identity, weakref)
+        self._next = 0
+        self.buffer: dict = {}   # identity -> identity of its buffer
+        self.nbytes: dict = {}   # identity -> bytes at its creation
+        self.produced: set = set()
+        self.consts: dict = {}   # identity -> (min, max), values walks
+        self.depends: set = set()   # identities computed from the inputs
+
+    def ident(self, t: torch.Tensor) -> tuple:
+        """``(identity, first seen)`` of a tensor object."""
+        hit = self._ids.get(id(t))
+        if hit is not None and hit[1]() is t:
+            return hit[0], False
+        i = self._next
+        self._next += 1
+        self._ids[id(t)] = (i, weakref.ref(t))
+        self.buffer[i] = i
+        self.nbytes[i] = tensor_bytes(t)
+        return i, True
+
+    def lookup(self, t) -> Optional[int]:
+        """The identity of a tensor the walk saw, or None."""
+        hit = self._ids.get(id(t))
+        return hit[0] if hit is not None and hit[1]() is t else None
+
+    def declare(self, t: torch.Tensor) -> int:
+        i, _ = self.ident(t)
+        self.depends.add(i)
+        return i
+
+    def _inputs(self, ts) -> tuple:
+        ids = []
+        for t in ts:
+            i, new = self.ident(t)
+            if new and self.values:
+                self.consts[i] = self._concrete(t)
+            ids.append(i)
+        return tuple(ids)
+
+    def _outputs(self, ts, in_ids, view: bool) -> tuple:
+        dep = any(i in self.depends for i in in_ids)
+        ids = []
+        for t in ts:
+            i, new = self.ident(t)
+            if new and view and in_ids:
+                self.buffer[i] = self.buffer[in_ids[0]]
+            self.produced.add(i)
+            if dep:
+                self.depends.add(i)
+            elif self.values and new:
+                self.consts[i] = self._concrete(t)
+            ids.append(i)
+        return tuple(ids)
+
+    def _concrete(self, t):
+        self.muted += 1          # its reductions are not the program's
+        try:
+            return concrete(t)
+        finally:
+            self.muted -= 1
+
+    def _ref(self, a):
+        return Ref(self.ident(a)[0]) if isinstance(a, torch.Tensor) else a
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -137,11 +262,20 @@ class Recorder(TorchDispatchMode):
             name = func.overloadpacket.__name__
             if func is _POW_SCALAR and args[1] == 2:
                 name = "square"         # x.square(): the reference's square
+            flow = {}
+            if self.dataflow:
+                in_ids = self._inputs(_tensors((args, kwargs)))
+                flow = dict(
+                    in_ids=in_ids,
+                    out_ids=self._outputs(_tensors(out), in_ids,
+                                          _is_view_op(func)),
+                    func=func, args=_pytree_map(self._ref, tuple(args)),
+                    kwargs=_pytree_map(self._ref, dict(kwargs)))
             self.records.append(OpRecord(
                 name, _metas((args, kwargs)),
                 _metas(out), stack_frames(2),
                 scalars=sum(isinstance(a, (int, float)) for a in args),
-                einsum=self.einsum > 0))
+                einsum=self.einsum > 0, **flow))
         return out
 
 
@@ -175,33 +309,87 @@ def charged(charges, fn, *args, **kwargs):
     one record per ``(op class, operations, bytes)`` of ``charges``, with
     the caller's frames, and none of ``fn``'s ATen ops (nor of a charge
     inside it)."""
+    return _charged(charges, None, fn, args, kwargs)
+
+
+def charged_launch(charges, launch, fn, *args, **kwargs):
+    """:func:`charged` for a kernel launch: the records also carry
+    ``launch``, ``(kernel name, geometry)`` (``analysis.geometry``)."""
+    return _charged(charges, launch, fn, args, kwargs)
+
+
+def _charged(charges, launch, fn, args, kwargs):
     rec = recorder
-    if not rec.muted:
-        frames = stack_frames(2)
-        rec.records.extend(
-            OpRecord("charge", (), (), frames, (op, float(f), float(b)))
-            for op, f, b in charges)
+    if rec.muted:
+        return fn(*args, **kwargs)
+    frames = stack_frames(3)
+    in_ids = rec._inputs(_tensors((args, kwargs))) if rec.dataflow else ()
     rec.muted += 1
     try:
-        return fn(*args, **kwargs)
+        out = fn(*args, **kwargs)
     finally:
         rec.muted -= 1
+    out_ids = rec._outputs(_tensors(out), in_ids, False) \
+        if rec.dataflow else ()
+    # one launch, on the first of its charges
+    rec.records.extend(
+        OpRecord("charge", (), (), frames, (op, float(f), float(b)),
+                 in_ids=in_ids, out_ids=out_ids,
+                 launch=launch if n == 0 else None)
+        for n, (op, f, b) in enumerate(charges))
+    return out
 
 
 def record(fn, *args, **kwargs) -> tuple:
     """Run ``fn(*args, **kwargs)`` under ``torch.no_grad`` and return
     ``(output, records)``.  Walks do not nest."""
+    rec = Recorder()
+    out = _run(rec, fn, args, kwargs)
+    return out, rec.records
+
+
+@dataclasses.dataclass
+class Walk:
+    """What :func:`walk` returns: the output, the records and the
+    recorder's identity tables."""
+
+    output: Any
+    records: list
+    recorder: Recorder
+    declared: tuple          # identities of the declared input tensors
+
+    def ident(self, t) -> Optional[int]:
+        """The identity of a tensor the walk saw (None if unseen)."""
+        return self.recorder.lookup(t)
+
+    @property
+    def output_ids(self) -> tuple:
+        return tuple(i for i in map(self.ident, _tensors(self.output))
+                     if i is not None)
+
+
+def walk(fn, *args, values: bool = False, declared=None, **kwargs) -> Walk:
+    """Run ``fn(*args, **kwargs)`` once under the recorder with dataflow
+    (module docstring).  ``declared`` are the input tensors (default: the
+    tensors among ``args``); with ``values=True`` every tensor that does
+    not depend on them carries its concrete min/max."""
+    rec = Recorder(dataflow=True, values=values)
+    decl = tuple(rec.declare(t) for t in _tensors(
+        args if declared is None else declared))
+    out = _run(rec, fn, args, kwargs)
+    return Walk(out, rec.records, rec, decl)
+
+
+def _run(rec: Recorder, fn, args, kwargs):
     global recorder
     if recorder is not None:
         raise RuntimeError("op_walk.record does not nest")
-    rec = Recorder()
     with torch.no_grad(), _EinsumDepth(rec), rec:
         recorder = rec
         try:
-            out = fn(*args, **kwargs)
+            return fn(*args, **kwargs)
         finally:
             recorder = None
-    return out, rec.records
 
 
 # -- the reference's helper names ---------------------------------------------

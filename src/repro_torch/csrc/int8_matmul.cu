@@ -64,6 +64,8 @@
 
 #include <initializer_list>
 
+#include "launch_geometry.cuh"
+
 namespace {
 
 constexpr int BM = 32;                    // rows a tile
@@ -421,7 +423,7 @@ long long smem_bytes(int nb, int rb, int kf, int x_f32) {
 }
 
 template <int QF>
-int launch(Args& a, cudaStream_t stream) {
+int launch(Args& a, cudaStream_t stream, LaunchGeo* geo) {
   const long long bytes = smem_bytes(a.nb, a.rb, a.kf, a.x_f32);
   const int bps = bytes <= kMaxSmem ? blocks_per_sm<QF>(bytes) : 0;
   if (bps <= 0) return (int)cudaErrorInvalidValue;
@@ -431,17 +433,18 @@ int launch(Args& a, cudaStream_t stream) {
   const long long per_cb = a.tiles < cap ? a.tiles : (cap > 0 ? cap : 1);
   const long long grid = per_cb * a.col_blocks;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (geo) return put_geo({grid, kThreads, bytes, QF}, geo);
   int8_matmul_kernel<QF><<<(unsigned)grid, kThreads, (size_t)bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int launch_qf(Args& a, cudaStream_t stream) {
+int launch_qf(Args& a, cudaStream_t stream, LaunchGeo* geo) {
   switch (pow2_qf(a.nb)) {
-    case 1: return launch<1>(a, stream);
-    case 2: return launch<2>(a, stream);
-    case 4: return launch<4>(a, stream);
-    case 8: return launch<8>(a, stream);
-    default: return launch<16>(a, stream);
+    case 1: return launch<1>(a, stream, geo);
+    case 2: return launch<2>(a, stream, geo);
+    case 4: return launch<4>(a, stream, geo);
+    case 8: return launch<8>(a, stream, geo);
+    default: return launch<16>(a, stream, geo);
   }
 }
 
@@ -650,26 +653,41 @@ int8_matmul_kloop(const Args a) {
 }
 
 template <int QF>
-int launch_kloop(Args& a, cudaStream_t stream) {
+int kloop_bytes() {
+  constexpr int NBP = LWN * QF * 8;
+  return (NBP + LBM) * LRB + 2 * LKS * NBP;
+}
+
+// blocks of the K-looped kernel an SM holds, asked once per kernel (after
+// opting in to its shared memory); 0 when a query failed
+template <int QF>
+int kloop_blocks_per_sm() {
   static bool opted = false;
   static int bps = 0;
-  constexpr int NBP = LWN * QF * 8;
-  const long long bytes = (long long)(NBP + LBM) * LRB + 2LL * LKS * NBP;
+  const int bytes = kloop_bytes<QF>();
   if (!opted) {
     if (cudaFuncSetAttribute(int8_matmul_kloop<QF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes) != cudaSuccess ||
+                             bytes) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &bps, int8_matmul_kloop<QF>, kThreads, (size_t)bytes)
             != cudaSuccess)
-      return (int)cudaErrorInvalidValue;
+      return 0;
     opted = true;
   }
+  return bps;
+}
+
+template <int QF>
+int launch_kloop(Args& a, cudaStream_t stream, LaunchGeo* geo) {
+  const long long bytes = kloop_bytes<QF>();
+  const int bps = kloop_blocks_per_sm<QF>();
   if (bps <= 0) return (int)cudaErrorInvalidValue;
   const long long cap = (long long)bps * sm_count() / a.col_blocks;
   const long long per_cb = a.tiles < cap ? a.tiles : (cap > 0 ? cap : 1);
   const long long grid = per_cb * a.col_blocks;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (geo) return put_geo({grid, kThreads, bytes, 100 + QF}, geo);
   int8_matmul_kloop<QF><<<(unsigned)grid, kThreads, (size_t)bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -678,7 +696,7 @@ int launch_kloop(Args& a, cudaStream_t stream) {
 // its x bytes (each column block reads x again), at most 64 (the ring then
 // fits three blocks an SM), halved while there are too few blocks to fill
 // the card.
-int launch_kloop_nb(Args& a, cudaStream_t stream) {
+int launch_kloop_nb(Args& a, cudaStream_t stream, LaunchGeo* geo) {
   a.tiles = (a.m + LBM - 1) / LBM;
   a.wnat = !a.w_int4 && a.n % 16 == 0 && aligned(a.w, 16);
   const int rows = a.m < LBM ? a.m : LBM;
@@ -692,12 +710,11 @@ int launch_kloop_nb(Args& a, cudaStream_t stream) {
   a.col_blocks = (a.n + nb - 1) / nb;
   a.xvec = a.k % 4 == 0 && aligned(a.x, a.x_f32 ? 16 : 4);
   switch (nb / (LWN * 8)) {
-    case 1: return launch_kloop<1>(a, stream);
-    case 2: return launch_kloop<2>(a, stream);
-    default: return launch_kloop<4>(a, stream);
+    case 1: return launch_kloop<1>(a, stream, geo);
+    case 2: return launch_kloop<2>(a, stream, geo);
+    default: return launch_kloop<4>(a, stream, geo);
   }
 }
-}  // namespace
 
 // x: int8 [m, k], or float32 [m, k] quantised in the kernel by eq 9 with
 // its exponent x_exp; w: int8 [k, n], or the nibble-packed int4 payload of
@@ -707,10 +724,9 @@ int launch_kloop_nb(Args& a, cudaStream_t stream) {
 // x, bit 4 an int4 w, bits 8-11 the activation's bits.
 // K up to 256 runs in one slab (int8_matmul_kernel), longer K in slabs of
 // 256 (int8_matmul_kloop).
-extern "C" int int8_matmul_launch(const void* x, const void* w, void* out,
-                                  const int8_t* axis, int m, int k, int n,
-                                  int shift, int mode, int out_exp, int x_exp,
-                                  cudaStream_t stream) {
+int run(const void* x, const void* w, void* out, const int8_t* axis, int m,
+        int k, int n, int shift, int mode, int out_exp, int x_exp,
+        cudaStream_t stream, LaunchGeo* geo) {
   const int clip16 = mode & 1, out_mode = (mode >> 1) & 3;
   const int x_f32 = (mode >> 3) & 1, w_int4 = (mode >> 4) & 1;
   const int x_bits = (mode >> 8) & 15;
@@ -723,7 +739,7 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, void* out,
   a.scale = ldexpf(1.0f, -out_exp);            // powers of two: exact
   a.x_f32 = x_f32; a.x_scale = ldexpf(1.0f, x_exp); a.x_bits = x_bits;
   a.w_int4 = w_int4;
-  if (k > kOneSlabK) return launch_kloop_nb(a, stream);
+  if (k > kOneSlabK) return launch_kloop_nb(a, stream, geo);
   a.kpad = (k + 31) / 32 * 32;
   a.rb = a.kpad + 16;               // 16 * odd bytes: conflict-free fragments
   a.kf = (k + 3) / 4 * 4;           // floats a staged float32 x row
@@ -749,5 +765,50 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, void* out,
       if (!a.xvec && k % v == 0 && aligned(x, v)) a.xvec = v;
   }
   a.ovec = out_mode != 2 && n % 4 == 0 && aligned(out, 16);
-  return launch_qf(a, stream);
+  return launch_qf(a, stream, geo);
+}
+
+}  // namespace
+
+extern "C" int int8_matmul_launch(const void* x, const void* w, void* out,
+                                  const int8_t* axis, int m, int k, int n,
+                                  int shift, int mode, int out_exp, int x_exp,
+                                  cudaStream_t stream) {
+  return run(x, w, out, axis, m, k, n, shift, mode, out_exp, x_exp, stream,
+             nullptr);
+}
+
+// The launcher's geometry for the same arguments (the addresses only for
+// their alignment): out4 = grid, threads, dynamic shared memory, variant
+// (QF for the one-slab kernel, 100 + QF for the K-looped one).  Launches
+// nothing; m, n or k of 0 launch nothing either and report a grid of 0.
+extern "C" int int8_matmul_geometry(const void* x, const void* w, void* out,
+                                    int m, int k, int n, int mode,
+                                    long long* out4) {
+  LaunchGeo* geo = reinterpret_cast<LaunchGeo*>(out4);
+  *geo = {0, 0, 0, 0};
+  return run(x, w, out, nullptr, m, k, n, 0, mode, 0, 0, nullptr, geo);
+}
+
+// Blocks an SM holds of the one-slab kernel built for QF column fragments
+// at `bytes` of shared memory (kloop = 0), or of the K-looped kernel
+// (kloop = 1; its shared memory is fixed), as the launcher asks it; -1 for
+// a kernel that is not built.
+extern "C" int int8_matmul_occupancy(int kloop, int qf, long long bytes) {
+  if (kloop) {
+    switch (qf) {
+      case 1: return kloop_blocks_per_sm<1>();
+      case 2: return kloop_blocks_per_sm<2>();
+      case 4: return kloop_blocks_per_sm<4>();
+      default: return -1;
+    }
+  }
+  switch (qf) {
+    case 1: return blocks_per_sm<1>(bytes);
+    case 2: return blocks_per_sm<2>(bytes);
+    case 4: return blocks_per_sm<4>(bytes);
+    case 8: return blocks_per_sm<8>(bytes);
+    case 16: return blocks_per_sm<16>(bytes);
+    default: return -1;
+  }
 }

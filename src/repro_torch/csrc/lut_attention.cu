@@ -75,6 +75,8 @@
 
 #include <initializer_list>
 
+#include "launch_geometry.cuh"
+
 namespace {
 
 constexpr int kEntries = 320;
@@ -575,7 +577,7 @@ int blocks_per_sm(int threads, long long bytes) {
 }
 
 template <int DT, int NT>
-int launch(Args& a, long long pairs, cudaStream_t stream) {
+int launch(Args& a, long long pairs, cudaStream_t stream, LaunchGeo* geo) {
   constexpr int srow = DT * 8 + 4;
   const int groups = (a.lq + 15) / 16;            // 16-row query groups
   const int sms = sm_count();
@@ -626,6 +628,9 @@ int launch(Args& a, long long pairs, cudaStream_t stream) {
     a.wpb = wpb;
     a.items = (int)items;
     a.stages = stages;
+    if (geo)
+      return put_geo({grid, threads, bytes, (DT * 100 + NT) * 10 + stages},
+                     geo);
     attn_kernel<DT, NT><<<(unsigned)grid, threads, (size_t)bytes, stream>>>(a);
     return (int)cudaGetLastError();
   }
@@ -634,33 +639,40 @@ int launch(Args& a, long long pairs, cudaStream_t stream) {
 // the built shapes: D <= 8, 64, 128 and bk <= 32, 128, and KWT-1's
 // 99 keys in 13 fragments
 template <int DT>
-int launch_nt(Args& a, long long pairs, cudaStream_t stream) {
-  if (a.bk <= 32) return launch<DT, 4>(a, pairs, stream);
-  if (a.bk > 96 && a.bk <= 104) return launch<DT, 13>(a, pairs, stream);
-  return launch<DT, 16>(a, pairs, stream);
+int launch_nt(Args& a, long long pairs, cudaStream_t stream, LaunchGeo* geo) {
+  if (a.bk <= 32) return launch<DT, 4>(a, pairs, stream, geo);
+  if (a.bk > 96 && a.bk <= 104) return launch<DT, 13>(a, pairs, stream, geo);
+  return launch<DT, 16>(a, pairs, stream, geo);
 }
 
-int launch_any(Args& a, long long pairs, cudaStream_t stream) {
-  if (a.d <= 8) return launch_nt<1>(a, pairs, stream);
-  if (a.d <= 64) return launch_nt<8>(a, pairs, stream);
-  return launch_nt<16>(a, pairs, stream);
+int launch_any(Args& a, long long pairs, cudaStream_t stream, LaunchGeo* geo) {
+  if (a.d <= 8) return launch_nt<1>(a, pairs, stream, geo);
+  if (a.d <= 64) return launch_nt<8>(a, pairs, stream, geo);
+  return launch_nt<16>(a, pairs, stream, geo);
+}
+
+template <int DT>
+int occupancy_nt(int nt, int threads, long long bytes) {
+  switch (nt) {
+    case 4: return blocks_per_sm<DT, 4>(threads, bytes);
+    case 13: return blocks_per_sm<DT, 13>(threads, bytes);
+    case 16: return blocks_per_sm<DT, 16>(threads, bytes);
+    default: return -1;
+  }
 }
 
 bool aligned(const void* p, long long bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-}  // namespace
-
 // Strides are in elements, per operand (batch, head, row); the depth axis
 // has stride 1.  Refused (cudaErrorInvalidValue): D > 128, bk > 128, a bk
 // that does not divide Lk, Hq not a multiple of Hkv.
-extern "C" int lut_attention_launch(
-    const void* q, const void* k, const void* v, const float* tab, void* out,
-    int b, int hq, int hkv, int lq, int lk, int d, int bk, int causal,
-    int use_lut, int is_bf16, float scale, int sqb, int sqh, int sql, int skb,
-    int skh, int skl, int svb, int svh, int svl, int sob, int soh, int sol,
-    cudaStream_t stream) {
+int run(const void* q, const void* k, const void* v, const float* tab,
+        void* out, int b, int hq, int hkv, int lq, int lk, int d, int bk,
+        int causal, int use_lut, int is_bf16, float scale, int sqb, int sqh,
+        int sql, int skb, int skh, int skl, int svb, int svh, int svl, int sob,
+        int soh, int sol, cudaStream_t stream, LaunchGeo* geo) {
   if (hkv <= 0 || hq % hkv || bk <= 0 || bk > 8 * kMaxNt || lk % bk || d <= 0
       || d > 128)
     return (int)cudaErrorInvalidValue;
@@ -685,5 +697,43 @@ extern "C" int lut_attention_launch(
     a.vec_in = a.vec_in && s % per16 == 0;
   a.vec_out = aligned(out, 2 * es) && sob % 2 == 0 && soh % 2 == 0
               && sol % 2 == 0;
-  return launch_any(a, pairs, stream);
+  return launch_any(a, pairs, stream, geo);
+}
+
+}  // namespace
+
+extern "C" int lut_attention_launch(
+    const void* q, const void* k, const void* v, const float* tab, void* out,
+    int b, int hq, int hkv, int lq, int lk, int d, int bk, int causal,
+    int use_lut, int is_bf16, float scale, int sqb, int sqh, int sql, int skb,
+    int skh, int skl, int svb, int svh, int svl, int sob, int soh, int sol,
+    cudaStream_t stream) {
+  return run(q, k, v, tab, out, b, hq, hkv, lq, lk, d, bk, causal, use_lut,
+             is_bf16, scale, sqb, sqh, sql, skb, skh, skl, svb, svh, svl, sob,
+             soh, sol, stream, nullptr);
+}
+
+// The launcher's geometry for the same arguments: out4 = grid, threads,
+// dynamic shared memory, variant ((DT * 100 + NT) * 10 + stages).
+// Launches nothing; no heads or no query rows report a grid of 0.
+extern "C" int lut_attention_geometry(int b, int hq, int hkv, int lq, int lk,
+                                      int d, int bk, long long* out4) {
+  LaunchGeo* geo = reinterpret_cast<LaunchGeo*>(out4);
+  *geo = {0, 0, 0, 0};
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, b, hq, hkv, lq, lk,
+             d, bk, 0, 1, 0, 1.0f, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, nullptr,
+             geo);
+}
+
+// Blocks an SM holds of the kernel built for DT depth and NT key fragments
+// with `threads` threads and `bytes` of shared memory, as the launcher
+// asks it; -1 for a kernel that is not built.
+extern "C" int lut_attention_occupancy(int dt, int nt, int threads,
+                                       long long bytes) {
+  switch (dt) {
+    case 1: return occupancy_nt<1>(nt, threads, bytes);
+    case 8: return occupancy_nt<8>(nt, threads, bytes);
+    case 16: return occupancy_nt<16>(nt, threads, bytes);
+    default: return -1;
+  }
 }

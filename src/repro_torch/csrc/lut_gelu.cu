@@ -50,6 +50,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "launch_geometry.cuh"
+
 namespace {
 
 constexpr int kTable = 32;
@@ -148,7 +150,7 @@ gelu_kernel(const T* __restrict__ x, const float* __restrict__ tab_g,
 // are any, out must have x's offset modulo 16 bytes.
 template <typename T, bool kInterp>
 int launch(const void* x, const float* tab, void* out, long long numel,
-           cudaStream_t stream) {
+           cudaStream_t stream, LaunchGeo* geo) {
   constexpr int kN = Vector<T>::kN;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
@@ -161,10 +163,22 @@ int launch(const void* x, const float* tab, void* out, long long numel,
   const long long want = (vectors + per_block - 1) / per_block;
   if (want >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   const int blocks = want < 1 ? 1 : (int)want;
+  if (geo) return put_geo({blocks, kThreads, 0, head}, geo);
   gelu_kernel<T, kInterp><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), tab, static_cast<T*>(out), numel, head,
       vectors);
   return (int)cudaGetLastError();
+}
+
+int run(const void* x, const float* tab, void* out, long long numel, int mode,
+        cudaStream_t stream, LaunchGeo* geo) {
+  switch (mode) {
+    case 0: return launch<float, false>(x, tab, out, numel, stream, geo);
+    case 1: return launch<float, true>(x, tab, out, numel, stream, geo);
+    case 2: return launch<__nv_bfloat16, false>(x, tab, out, numel, stream, geo);
+    case 3: return launch<__nv_bfloat16, true>(x, tab, out, numel, stream, geo);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -172,11 +186,15 @@ int launch(const void* x, const float* tab, void* out, long long numel,
 // mode: 2 * (bfloat16 data) + (interp)
 extern "C" int lut_gelu_launch(const void* x, const float* tab, void* out,
                                long long numel, int mode, cudaStream_t stream) {
-  switch (mode) {
-    case 0: return launch<float, false>(x, tab, out, numel, stream);
-    case 1: return launch<float, true>(x, tab, out, numel, stream);
-    case 2: return launch<__nv_bfloat16, false>(x, tab, out, numel, stream);
-    case 3: return launch<__nv_bfloat16, true>(x, tab, out, numel, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return run(x, tab, out, numel, mode, stream, nullptr);
+}
+
+// The launcher's geometry for the same arguments (the addresses only for
+// their alignment): out4 = grid, threads, dynamic shared memory, and the
+// scalar head (elements before the first 16-byte vector).  Launches
+// nothing.
+extern "C" int lut_gelu_geometry(const void* x, void* out, long long numel,
+                                 int mode, long long* out4) {
+  return run(x, nullptr, out, numel, mode, nullptr,
+             reinterpret_cast<LaunchGeo*>(out4));
 }

@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_geometry.cuh"
+
 namespace {
 
 // The SM count of the current device, read once per device and kept.
@@ -490,22 +492,29 @@ softmax_slab_kernel(const float* __restrict__ x, const int* __restrict__ exp_g,
   if (lane == 0) bulk_wait_all();
 }
 
+// blocks of the slab kernel an SM holds at the largest rings (registers,
+// shared memory), asked once per kernel; 0 when the query failed
 template <bool kFixed, int G, int VPL>
-int launch_slab(const float* x, const int* exp_tab, const int* inv_tab,
-                float* out, int m, int n, int slab_rows, int pre,
-                cudaStream_t stream) {
-  auto kernel = softmax_slab_kernel<G, VPL, kFixed>;
-  // blocks an SM holds at the largest rings (registers, shared memory),
-  // asked once per kernel
+int slab_blocks_per_sm() {
   static int per_sm = 0;
   if (per_sm == 0) {
     int fit = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &fit, kernel, kSlabThreads,
+            &fit, softmax_slab_kernel<G, VPL, kFixed>, kSlabThreads,
             kSlabWarps * kStages * sizeof(float) * kSlabFloats) != cudaSuccess)
-      return (int)cudaGetLastError();
+      return 0;
     per_sm = fit > 0 ? fit : 1;
   }
+  return per_sm;
+}
+
+template <bool kFixed, int G, int VPL>
+int launch_slab(const float* x, const int* exp_tab, const int* inv_tab,
+                float* out, int m, int n, int slab_rows, int pre,
+                cudaStream_t stream, LaunchGeo* geo) {
+  auto kernel = softmax_slab_kernel<G, VPL, kFixed>;
+  const int per_sm = slab_blocks_per_sm<kFixed, G, VPL>();
+  if (per_sm == 0) return (int)cudaGetLastError();
   // each warp walks the card's share of slabs, from 1 to kMaxPerWarp
   const long long warps = (long long)sm_count() * per_sm * kSlabWarps;
   const long long nslabs = ((long long)m + slab_rows - 1) / slab_rows;
@@ -514,6 +523,7 @@ int launch_slab(const float* x, const int* exp_tab, const int* inv_tab,
   const long long span = (long long)kSlabWarps * per_warp;
   const int blocks = (int)((nslabs + span - 1) / span);
   const size_t smem = kSlabWarps * kStages * sizeof(float) * (size_t)slab_rows * n;
+  if (geo) return put_geo({blocks, kSlabThreads, (long long)smem, G * 16 + VPL}, geo);
   kernel<<<blocks, kSlabThreads, smem, stream>>>(x, exp_tab, inv_tab, out, m, n,
                                                  slab_rows, per_warp, pre);
   return (int)cudaGetLastError();
@@ -523,10 +533,10 @@ int launch_slab(const float* x, const int* exp_tab, const int* inv_tab,
 template <bool kFixed>
 int launch_slab_for(const float* x, const int* exp_tab, const int* inv_tab,
                     float* out, int m, int n, int slab_rows, int pre,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, LaunchGeo* geo) {
 #define REPRO_SLAB(g, vpl)                                                \
   return launch_slab<kFixed, g, vpl>(x, exp_tab, inv_tab, out, m, n,    \
-                                     slab_rows, pre, stream)
+                                     slab_rows, pre, stream, geo)
   if (n <= 1) REPRO_SLAB(1, 1);
   if (n <= 2) REPRO_SLAB(2, 1);
   if (n <= 4) REPRO_SLAB(4, 1);
@@ -572,28 +582,75 @@ extern "C" int lut_softmax_slab_rows(int n, int aligned) {
   return slab_rows_for(n, aligned != 0);
 }
 
-extern "C" int lut_softmax_fixed_launch(const float* x, const int* exp_tab,
-                                        const int* inv_tab, float* out, int m,
-                                        int n, cudaStream_t stream) {
+namespace {
+
+int run_fixed(const float* x, const int* exp_tab, const int* inv_tab,
+              float* out, int m, int n, cudaStream_t stream, LaunchGeo* geo) {
   const int pre = pre_shift_bits(n);
   const int slab_rows = slab_rows_for(n, aligned16(x, out));
   if (slab_rows)
     return launch_slab_for<true>(x, exp_tab, inv_tab, out, m, n, slab_rows, pre,
-                                 stream);
+                                 stream, geo);
+  if (geo) return put_geo({blocks_for(m), kThreads, 0, 0}, geo);
   softmax_fixed_kernel<<<blocks_for(m), kThreads, 0, stream>>>(
       x, exp_tab, inv_tab, out, m, n, pre);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lut_softmax_float_launch(const float* x, const float* exp_tab,
-                                        float* out, int m, int n,
-                                        cudaStream_t stream) {
+int run_float(const float* x, const float* exp_tab, float* out, int m, int n,
+              cudaStream_t stream, LaunchGeo* geo) {
   const int* words = reinterpret_cast<const int*>(exp_tab);
   const int slab_rows = slab_rows_for(n, aligned16(x, out));
   if (slab_rows)
     return launch_slab_for<false>(x, words, nullptr, out, m, n, slab_rows, 0,
-                                  stream);
+                                  stream, geo);
+  if (geo) return put_geo({blocks_for(m), kThreads, 0, 0}, geo);
   softmax_float_kernel<<<blocks_for(m), kThreads, 0, stream>>>(x, words, out, m,
                                                                n);
   return (int)cudaGetLastError();
+}
+
+template <bool kFixed>
+int slab_occupancy(int g, int vpl) {
+  switch (g * 16 + vpl) {
+    case 17: return slab_blocks_per_sm<kFixed, 1, 1>();
+    case 33: return slab_blocks_per_sm<kFixed, 2, 1>();
+    case 65: return slab_blocks_per_sm<kFixed, 4, 1>();
+    case 129: return slab_blocks_per_sm<kFixed, 8, 1>();
+    case 257: return slab_blocks_per_sm<kFixed, 16, 1>();
+    case 513: return slab_blocks_per_sm<kFixed, 32, 1>();
+    case 514: return slab_blocks_per_sm<kFixed, 32, 2>();
+    case 516: return slab_blocks_per_sm<kFixed, 32, 4>();
+    default: return -1;
+  }
+}
+
+}  // namespace
+
+extern "C" int lut_softmax_fixed_launch(const float* x, const int* exp_tab,
+                                        const int* inv_tab, float* out, int m,
+                                        int n, cudaStream_t stream) {
+  return run_fixed(x, exp_tab, inv_tab, out, m, n, stream, nullptr);
+}
+
+extern "C" int lut_softmax_float_launch(const float* x, const float* exp_tab,
+                                        float* out, int m, int n,
+                                        cudaStream_t stream) {
+  return run_float(x, exp_tab, out, m, n, stream, nullptr);
+}
+
+// The launchers' geometry for the same arguments (the addresses only for
+// their alignment): out4 = grid, threads, dynamic shared memory, variant
+// (0 the global path, G * 16 + VPL a slab kernel).  Launches nothing.
+extern "C" int lut_softmax_geometry(const float* x, float* out, int m, int n,
+                                    int fixed, long long* out4) {
+  LaunchGeo* geo = reinterpret_cast<LaunchGeo*>(out4);
+  return fixed ? run_fixed(x, nullptr, nullptr, out, m, n, nullptr, geo)
+               : run_float(x, nullptr, out, m, n, nullptr, geo);
+}
+
+// Blocks of the slab kernel (G lanes a row, VPL floats a lane) an SM
+// holds, as the launcher asks it; -1 for a kernel that is not built.
+extern "C" int lut_softmax_occupancy(int g, int vpl, int fixed) {
+  return fixed ? slab_occupancy<true>(g, vpl) : slab_occupancy<false>(g, vpl);
 }

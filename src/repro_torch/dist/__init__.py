@@ -1,6 +1,7 @@
 """repro_torch.dist — the port's distribution layer.
 
-Only the mesh context the serving cell enters is ported so far
-(:mod:`repro_torch.dist.ctx`, single-device no-ops); gradient compression
-and the mesh programs are ROADMAP queue A item 4.
+The mesh context the serving cell enters (:mod:`repro_torch.dist.ctx`,
+single-device no-ops) and the error-feedback compressed gradient sync
+(:mod:`repro_torch.dist.compress`, a ring over a ``torch.distributed``
+process group).  The mesh programs are ROADMAP queue A items 4.2-4.4.
 """

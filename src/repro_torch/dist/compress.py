@@ -1,0 +1,187 @@
+"""int8-compressed gradient synchronisation with error feedback.
+
+The twin of the reference's ``repro.dist.compress``: the cross-pod
+gradient all-reduce is the slowest wire in a multi-pod fleet, so exactly
+that hop is compressed to an int8 (or nibble-packed int4) payload with
+f32 scales, and the quantisation residual is carried into the next step
+(error feedback: the bias telescopes across steps, cf. sub-8-bit
+streaming-KWS training, arXiv:2207.06920).
+
+``compressed_grad_sync`` runs a ring all-reduce: each of the n-1 hops
+moves the packed payload plus its f32 scale one position around the ring
+(rank r sends to r+1 and receives from r-1, ``dist.batch_isend_irecv``),
+and every rank accumulates the dequantised shards in f32 in hop order —
+its own, then r-1, r-2, ... — and divides by the ring size (mean
+semantics, matching a data-parallel gradient all-reduce).  The ring is a
+``torch.distributed`` process group passed as ``group`` (the port's
+counterpart of the mesh's slow axis); without one it is the mesh axis
+itself, a ring of one on the port's single-device ``HostMesh``, which
+quantises and dequantises and communicates nothing.
+
+Error feedback invariant (per leaf, in f32):
+
+    c_t      = g_t + e_t            # residual-corrected gradient
+    synced_t = mean_ring Q(c_t)     # what the optimizer sees
+    e_{t+1}  = c_t - Q(c_t)         # what the wire dropped
+
+so sum_t synced_t = sum_t g_t + e_0 - e_T on one device: the accumulated
+estimate drifts from the exact sum by at most one step's quantisation
+error.
+
+Every division here is by a tensor on the operand's device: CUDA divides
+a tensor by a host scalar as a product with its reciprocal, which rounds
+otherwise than the reference's true division.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.tree import tree_leaves, tree_map
+
+
+def reduce_axis(mesh) -> str:
+    """The slow axis the compressed sync rings over: 'pod' when present
+    (inter-pod DCN), else the outermost data axis."""
+    for name in ("pod", "data"):
+        if name in mesh.axis_names:
+            return name
+    return mesh.axis_names[0]
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def quantize_leaf(g: torch.Tensor, per_channel: bool = False, *,
+                  bits: int = 8):
+    """Symmetric ``bits``-wide payload: values in ±(2^(bits-1)-1) + f32
+    scale(s), stored through the shared ``core.quant`` codec (int8 body at
+    8 bits, nibble-packed uint8 — half the wire bytes — at ``bits<=4``).
+
+    ``per_channel=True`` gives rank>=2 leaves one scale per leading-axis
+    channel; rank<=1 leaves (biases, norm scales) always use the
+    per-tensor scale.  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does.
+    """
+    hi = float(2 ** (bits - 1) - 1)
+    g32 = g.to(torch.float32)
+    if per_channel and g32.ndim >= 2:
+        peak = g32.abs().amax(dim=tuple(range(1, g32.ndim)))
+    else:
+        peak = g32.abs().amax()
+    scale = peak.clamp_min(1e-30) / _const(hi, g32)
+    q = torch.round(g32 / _expand(scale, g32.ndim)).clamp(-hi, hi)
+    return quant.pack_payload(q.to(quant.storage_dtype(bits)), bits), scale
+
+
+def _expand(scale: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Broadcast a [d0] per-channel scale (or scalar) against a rank-ndim
+    payload."""
+    return scale.reshape(tuple(scale.shape) + (1,) * (ndim - scale.ndim))
+
+
+def dequantize_leaf(q: torch.Tensor, scale: torch.Tensor, *, bits: int = 8,
+                    shape=None) -> torch.Tensor:
+    """Invert :func:`quantize_leaf`: unpack the wire payload through the
+    shared codec (``shape`` is the logical leaf shape, required when the
+    payload is nibble-packed) and re-apply the scale."""
+    if bits <= 4 and shape is None:
+        raise ValueError("nibble-packed payloads need the logical shape "
+                         "(q.shape is the packed byte count)")
+    vals = quant.unpack_payload(q, bits, q.shape if shape is None else shape)
+    return vals.to(torch.float32) * _expand(scale, vals.ndim)
+
+
+def init_error_state(grads):
+    """Zeroed per-leaf f32 residuals, same tree structure (and devices) as
+    the grads."""
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device), grads)
+
+
+def _ring_mean(payloads, own, n, group, *, bits: int = 8):
+    """Gather-ring all-reduce of quantised leaves ``[(q, scale, shape)]``
+    whose own dequantised shards are ``own``: dequantise + f32 accumulate
+    locally at every hop (re-quantising partial sums each hop would
+    compound error; moving the original shards does not).  The payload
+    stays in its packed codec form across every hop; each hop moves every
+    leaf in one batch of sends and receives."""
+    accs = list(own)
+    import torch.distributed as dist
+
+    rank = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (rank + 1) % n)
+    src = dist.get_global_rank(group, (rank - 1) % n)
+    held = [(q.contiguous(), s.reshape(-1).contiguous())
+            for q, s, _ in payloads]
+    for _ in range(n - 1):
+        got = [(torch.empty_like(q), torch.empty_like(s)) for q, s in held]
+        ops = []
+        for (q, s), (gq, gs) in zip(held, got):
+            ops += [dist.P2POp(dist.isend, q, dst, group),
+                    dist.P2POp(dist.irecv, gq, src, group),
+                    dist.P2POp(dist.isend, s, dst, group),
+                    dist.P2POp(dist.irecv, gs, src, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        held = got
+        for i, ((gq, gs), (_, s0, shape)) in enumerate(zip(got, payloads)):
+            accs[i] = accs[i] + dequantize_leaf(
+                gq, gs.reshape(s0.shape), bits=bits, shape=shape)
+    return [a / _const(float(n), a) for a in accs]
+
+
+def ring_size(mesh, axis=None, group=None) -> int:
+    """The ring the sync runs over: the process group's size, else the
+    size of ``mesh``'s ``axis`` (the port's ``HostMesh``: its ``shape``
+    beside its ``axis_names``)."""
+    if group is not None:
+        import torch.distributed as dist
+        return dist.get_world_size(group)
+    axis = axis or reduce_axis(mesh)
+    return int(dict(zip(mesh.axis_names, mesh.shape))[axis])
+
+
+def compressed_grad_sync(grads, err, mesh, axis=None,
+                         per_channel: bool = False, *, bits: int = 8,
+                         group=None):
+    """Ring-mean ``grads`` over the slow axis with packed payloads.
+
+    Returns ``(synced, new_err)``: the dequantised ring mean (same tree /
+    dtypes as ``grads``) and the updated error-feedback state.  ``err``
+    comes from :func:`init_error_state` on step 0 and is threaded through
+    subsequent calls.  ``group`` (a ``torch.distributed`` process group)
+    is the ring; without one the ring is ``mesh``'s ``axis`` (default
+    :func:`reduce_axis`), which communicates only when it is longer than
+    one — and a mesh of more than one device is not ported yet.
+    """
+    n = ring_size(mesh, axis, group)
+    if n > 1 and group is None:
+        raise NotImplementedError(
+            f"a mesh ring of {n} devices is not ported yet: it waits for "
+            "ROADMAP queue A item 4 (pass a torch.distributed group)")
+    leaves, err_leaves = tree_leaves(grads), tree_leaves(err)
+    if len(leaves) != len(err_leaves):
+        raise ValueError("error state does not match the gradient tree "
+                         "(init_error_state?)")
+    payloads, own, synced, new_err = [], [], [], []
+    for g, e in zip(leaves, err_leaves):
+        c = g.to(torch.float32) + e
+        q, scale = quantize_leaf(c, per_channel=per_channel, bits=bits)
+        back = dequantize_leaf(q, scale, bits=bits, shape=g.shape)
+        new_err.append(c - back)
+        if n == 1:
+            # a ring of one: the mean is the own shard, so no leaf's
+            # payload or f32 shard outlives its turn of the loop
+            synced.append(back.to(g.dtype))
+        else:
+            payloads.append((q, scale, tuple(g.shape)))
+            own.append(back)
+    if n > 1:
+        means = _ring_mean(payloads, own, n, group, bits=bits)
+        synced = [m.to(g.dtype) for m, g in zip(means, leaves)]
+    synced, errs = iter(synced), iter(new_err)
+    return (tree_map(lambda _: next(synced), grads),
+            tree_map(lambda _: next(errs), grads))

@@ -46,6 +46,13 @@ class LaunchState:
 
 _STATES: dict[int, LaunchState] = {}
 
+# When a set: every launch adds ``(entry point name, arguments)`` to it, so
+# that a run can hold each launch's geometry query against its Python
+# mirror afterwards (``analysis.geometry.check_launch_log``).  Off (None)
+# by default; switch it on around untimed calls only, since it adds a
+# hash of the arguments to every launch.
+LOG: set | None = None
+
 
 def on_cuda(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor (the wrapper launches its kernel), False for
@@ -70,6 +77,8 @@ def state(index: int) -> LaunchState:
 def launch(st: LaunchState, entry, what: str, *args) -> None:
     """Call the C entry point ``entry`` with ``args`` and the current
     stream of ``st``'s device; raise when it reports a refused launch."""
+    if LOG is not None:
+        LOG.add((entry.__name__, args))
     idx = st.index
     if torch.cuda.current_device() == idx:
         code = entry(*args, st.raw_stream(idx))

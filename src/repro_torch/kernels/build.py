@@ -49,6 +49,22 @@ SIGNATURES = {
     # stream
     "lut_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _F) + (_I,) * 12 + (_P,),
+    # the launchers' geometry for the same arguments, into out4 = grid,
+    # threads, dynamic shared memory, variant (analysis.geometry):
+    # x, out, m, n, fixed, out4
+    "lut_softmax_geometry": (_P, _P, _I, _I, _I, _P),
+    # x, out, numel, mode, out4
+    "lut_gelu_geometry": (_P, _P, _L, _I, _P),
+    # x, w, out, m, k, n, mode, out4
+    "int8_matmul_geometry": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # b, hq, hkv, lq, lk, d, block_k, out4
+    "lut_attention_geometry": (_I,) * 7 + (_P,),
+    # blocks an SM holds, as each launcher asks it: g, vpl, fixed
+    "lut_softmax_occupancy": (_I, _I, _I),
+    # kloop, qf, bytes
+    "int8_matmul_occupancy": (_I, _I, _L),
+    # dt, nt, threads, bytes
+    "lut_attention_occupancy": (_I, _I, _I, _L),
 }
 
 _lock = threading.Lock()

@@ -52,6 +52,80 @@ def nibble_grid(payload: torch.Tensor, k: int, n: int) -> torch.Tensor:
 
 _OUT_DTYPES = (torch.float32, torch.int32, torch.int16)   # by out_mode
 
+# the launcher's constants (csrc/int8_matmul.cu)
+_BM, _THREADS, _WN, _MAX_NB, _MAX_SMEM, _XSTAGES = 32, 256, 4, 256, 232448, 2
+_ONE_SLAB_K, _LBM, _LKS, _LWN = 256, 64, 256, 2
+
+
+def _pow2_qf(nb: int) -> int:
+    qf = (nb // 8 + _WN - 1) // _WN
+    return 1 if qf <= 1 else 2 if qf <= 2 else 4 if qf <= 4 else \
+        8 if qf <= 8 else 16
+
+
+def _smem_bytes(nb: int, rb: int, kf: int, x_f32: int) -> int:
+    qf = _pow2_qf(nb)
+    nbp = _WN * 8 * qf
+    wpitch = qf * 8 if qf % 2 else qf * 8 + 8
+    return (8 * 16 * wpitch * 4 + nbp * 4 + nbp * rb
+            + (1 if x_f32 else _XSTAGES) * _BM * rb
+            + (_XSTAGES * _BM * kf * 4 if x_f32 else 0))
+
+
+def _grid(tiles: int, col_blocks: int, bps: int, sms: int) -> int:
+    cap = bps * sms // col_blocks
+    per_cb = tiles if tiles < cap else (cap if cap > 0 else 1)
+    return per_cb * col_blocks
+
+
+def geometry(x_addr: int, w_addr: int, out_addr: int, m: int, k: int, n: int,
+             mode: int, *, sms: int, occupancy) -> tuple:
+    """The launcher's choice for ``int8_matmul_geometry``'s arguments,
+    written out in Python: ``(code, (grid, threads, shared memory,
+    variant))``, variant QF (one slab) or 100 + QF (K loop).
+    ``occupancy(("int8_matmul", kloop, QF), threads, smem)`` is the blocks
+    an SM holds (the card's answer, or a model of it)."""
+    if m <= 0 or n <= 0 or k <= 0:
+        return 0, (0, 0, 0, 0)
+    x_f32, w_int4 = (mode >> 3) & 1, (mode >> 4) & 1
+    x_bits = (mode >> 8) & 15
+    if x_f32 and not 1 <= x_bits <= 8:
+        return 1, (0, 0, 0, 0)
+    if k > _ONE_SLAB_K:
+        tiles = -(-m // _LBM)
+        x_per_k = min(m, _LBM) * (4 if x_f32 else 1)
+        nb = 16
+        while nb < 64 and (nb // 2 if w_int4 else nb) < 4 * x_per_k:
+            nb *= 2
+        while nb > 16 and tiles * (-(-n // nb)) < 2 * sms:
+            nb //= 2
+        qf = nb // (_LWN * 8)
+        nbp = _LWN * qf * 8
+        smem = (nbp + _LBM) * (_LKS + 16) + 2 * _LKS * nbp
+        bps = occupancy(("int8_matmul", 1, qf), _THREADS, smem)
+        if bps <= 0:
+            return 1, (0, 0, 0, 0)
+        grid = _grid(tiles, -(-n // nb), bps, sms)
+        return 0, (grid, _THREADS, smem, 100 + qf)
+    rb = (k + 31) // 32 * 32 + 16
+    kf = (k + 3) // 4 * 4
+    tiles = -(-m // _BM)
+    nb = (n + 7) // 8 * 8 if n < _MAX_NB else _MAX_NB
+    while nb > 8 and _smem_bytes(nb, rb, kf, x_f32) > _MAX_SMEM:
+        nb = (nb // 2 + 7) // 8 * 8
+    while nb > _BM * (4 if x_f32 else 1) and tiles * (-(-n // nb)) < 2 * sms:
+        nb = (nb // 2 + 7) // 8 * 8
+    qf = _pow2_qf(nb)
+    smem = _smem_bytes(nb, rb, kf, x_f32)
+    bps = occupancy(("int8_matmul", 0, qf), _THREADS, smem) \
+        if smem <= _MAX_SMEM else 0
+    if bps <= 0:
+        return 1, (0, 0, 0, 0)
+    grid = _grid(tiles, -(-n // nb), bps, sms)
+    if grid > 2 ** 31 - 1:
+        return 1, (0, 0, 0, 0)
+    return 0, (grid, _THREADS, smem, qf)
+
 
 def _check(x, w, w_shape):
     k = x.shape[-1] if x.ndim >= 1 else None

@@ -24,6 +24,60 @@ launches = 0   # kernel launches made by this wrapper (both modes)
 MAX_BLOCK_K = 128   # keys a tile: the score tile of a warp stays in registers
 MAX_D = 128
 _INT32_MAX = 2 ** 31 - 1
+_MAX_WARPS, _ENTRIES, _MAX_SMEM = 8, 320, 232448   # csrc/lut_attention.cu
+
+
+def _smem_floats(stages: int, wpb: int, nt: int, srow: int) -> int:
+    return _ENTRIES + stages * wpb * 16 * srow + stages * 2 * nt * 8 * srow
+
+
+def geometry(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, bk: int, *,
+             sms: int, occupancy) -> tuple:
+    """The launcher's choice for ``lut_attention_geometry``'s arguments,
+    written out in Python: ``(code, (grid, threads, shared memory,
+    variant))``, variant ``(DT * 100 + NT) * 10 + stages``.
+    ``occupancy(("lut_attention", DT, NT), threads, smem)`` is the blocks an
+    SM holds (the card's answer, or a model of it)."""
+    if hkv <= 0 or hq % hkv or bk <= 0 or bk > MAX_BLOCK_K or lk % bk \
+            or d <= 0 or d > MAX_D:
+        return 1, (0, 0, 0, 0)
+    pairs = b * hq
+    if pairs == 0 or lq == 0:
+        return 0, (0, 0, 0, 0)
+    dt = 1 if d <= 8 else 8 if d <= 64 else 16
+    nt = 4 if bk <= 32 else 13 if 96 < bk <= 104 else 16
+    srow = dt * 8 + 4
+    groups = -(-lq // 16)
+    splits = 1 if pairs >= 2 * sms else -(-(2 * sms) // pairs)
+    splits = min(max(splits, 1), groups)
+    wpb = min(-(-groups // splits), _MAX_WARPS)
+    tiles = lk // bk
+    wpb0, force_one = wpb, False
+    while True:
+        splits = -(-groups // wpb)
+        items = pairs * splits
+        if items > _INT32_MAX:
+            return 1, (0, 0, 0, 0)
+        threads = 32 * wpb
+        bytes1 = _smem_floats(1, wpb, nt, srow) * 4
+        bytes2 = _smem_floats(2, wpb, nt, srow) * 4
+        key = ("lut_attention", dt, nt)
+        bps1 = occupancy(key, threads, bytes1) if bytes1 <= _MAX_SMEM else 0
+        bps2 = occupancy(key, threads, bytes2) if bytes2 <= _MAX_SMEM else 0
+        one = force_one or (tiles == 1 and (bps1 >= 2 * bps2
+                                            or items <= bps1 * sms))
+        stages = 1 if one else 2
+        nbytes, bps = (bytes1, bps1) if one else (bytes2, bps2)
+        if bps <= 0:
+            if wpb == 1:
+                if force_one:
+                    return 1, (0, 0, 0, 0)
+                force_one, wpb = True, wpb0
+                continue
+            wpb = (wpb + 1) // 2
+            continue
+        grid = min(items, bps * sms)
+        return 0, (grid, threads, nbytes, (dt * 100 + nt) * 10 + stages)
 
 
 def strides(t: torch.Tensor, what: str) -> tuple[int, int, int]:

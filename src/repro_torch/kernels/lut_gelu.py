@@ -16,6 +16,26 @@ from repro_torch.kernels import _launch, ref
 
 launches = 0   # kernel launches made by this wrapper
 
+_THREADS, _UNROLL = 256, 2       # the launcher's (csrc/lut_gelu.cu)
+
+
+def geometry(x_addr: int, out_addr: int, numel: int, mode: int, **_) -> tuple:
+    """The launcher's choice for ``lut_gelu_geometry``'s arguments, written
+    out in Python: ``(code, (grid, threads, shared memory, scalar head))``;
+    code 1 where the launcher refuses the addresses."""
+    size = 2 if mode >= 2 else 4
+    per_vec = 16 // size
+    if (x_addr | out_addr) % size:
+        return 1, (0, 0, 0, 0)
+    head = min(((16 - x_addr % 16) % 16) // size, numel)
+    vectors = (numel - head) // per_vec
+    if vectors > 0 and (x_addr ^ out_addr) % 16:
+        return 1, (0, 0, 0, 0)
+    want = -(-vectors // (_THREADS * _UNROLL))
+    if want >= 2 ** 31:
+        return 1, (0, 0, 0, 0)
+    return 0, (max(want, 1), _THREADS, 0, head)
+
 
 def empty_aligned_like(x: torch.Tensor) -> torch.Tensor:
     """An uninitialised contiguous tensor of ``x``'s shape and dtype whose

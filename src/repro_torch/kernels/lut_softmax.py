@@ -16,6 +16,44 @@ from repro_torch.kernels import _launch, ref
 
 launches = 0   # kernel launches made by this wrapper (both variants)
 
+# the launcher's constants (csrc/lut_softmax.cu)
+_WARPS, _MAX_BLOCKS = 8, 4096
+_SLAB_WARPS, _SLAB_FLOATS, _STAGES, _MAX_PER_WARP = 4, 512, 3, 4
+
+
+def _slab_kernel(n: int) -> tuple:
+    """(G lanes a row, VPL floats a lane) of the slab kernel for rows of n."""
+    for lim, g in ((1, 1), (2, 2), (4, 4), (8, 8), (16, 16), (32, 32)):
+        if n <= lim:
+            return g, 1
+    return (32, 2) if n <= 64 else (32, 4)
+
+
+def geometry(x_addr: int, out_addr: int, m: int, n: int, fixed: int, *,
+             sms: int, occupancy) -> tuple:
+    """The launcher's choice for ``lut_softmax_geometry``'s arguments,
+    written out in Python: ``(code, (grid, threads, shared memory,
+    variant))``, variant 0 the global path or ``G * 16 + VPL`` a slab
+    kernel.  ``occupancy(("lut_softmax", G, VPL, fixed), threads, smem)``
+    is the blocks an SM holds (the card's answer, or a model of it)."""
+    aligned = (x_addr | out_addr) % 16 == 0
+    rows = 0 if not aligned or n < 1 or n > _SLAB_FLOATS // 4 else \
+        _SLAB_FLOATS // n // 4 * 4
+    if not rows:
+        return 0, (min(-(-m // _WARPS), _MAX_BLOCKS), 32 * _WARPS, 0, 0)
+    g, vpl = _slab_kernel(n)
+    per_sm = occupancy(("lut_softmax", g, vpl, int(bool(fixed))),
+                       32 * _SLAB_WARPS,
+                       _SLAB_WARPS * _STAGES * 4 * _SLAB_FLOATS)
+    if per_sm <= 0:
+        return 1, (0, 0, 0, 0)
+    warps = sms * per_sm * _SLAB_WARPS
+    nslabs = -(-m // rows)
+    per_warp = min(max(nslabs // warps, 1), _MAX_PER_WARP)
+    blocks = -(-nslabs // (_SLAB_WARPS * per_warp))
+    smem = _SLAB_WARPS * _STAGES * 4 * rows * n
+    return 0, (blocks, 32 * _SLAB_WARPS, smem, g * 16 + vpl)
+
 
 def lut_softmax_rows(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
     """LUT softmax along the last axis of a tensor of any rank -> float32:

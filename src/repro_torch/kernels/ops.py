@@ -7,8 +7,9 @@ there is no fallback: if the kernels do not build, a CUDA call raises.
 
 Under the cost model's op recorder (``analysis.op_walk.recorder`` set) a
 wrapper reports what its kernel computes — op class, operations, bytes
-(``perf.cost.*_charge``) — and its own ATen ops go unrecorded, so a plan
-prices the same on either device.
+(``perf.cost.*_charge``) — and the launch it makes (the arguments of its
+kernel's geometry query, ``analysis.geometry``), and its own ATen ops go
+unrecorded, so a plan prices and checks the same on either device.
 
 The CUDA kernels mask their ragged edges themselves, so nothing is padded
 here and the reference's ``pad_to_block`` is not ported.  ``fit_block``
@@ -83,13 +84,27 @@ def refuse_grad(x: torch.Tensor, what: str) -> None:
             "in its forward), or call it under torch.no_grad()")
 
 
+def _addr(t: torch.Tensor, dtype=None) -> int:
+    """The address a launch would hand its kernel for ``t``: its own where
+    the wrapper launches on it as it is, else (a fresh copy) 0 — every
+    allocation is aligned beyond 16 bytes, and only the alignment enters
+    the geometry."""
+    if t.is_contiguous() and (dtype is None or t.dtype == dtype):
+        return t.data_ptr()
+    return 0
+
+
 def lut_gelu(x: torch.Tensor, *, interp: bool = False) -> torch.Tensor:
     """Piecewise LUT GELU over any-shaped input (output in ``x.dtype``).
     Refuses a tensor that is recording a gradient (:func:`refuse_grad`)."""
     refuse_grad(x, "lut_gelu")
     if _walk.recorder is not None:
-        return _walk.charged(_cost.gelu_charge(x, interp),
-                             _gelu.lut_gelu_flat, x, interp=interp)
+        a = _addr(x)
+        launch = ("lut_gelu", (a, a % 16, x.numel(),
+                               2 * (x.dtype == torch.bfloat16) + int(interp))
+                  ) if x.numel() else None
+        return _walk.charged_launch(_cost.gelu_charge(x, interp), launch,
+                                    _gelu.lut_gelu_flat, x, interp=interp)
     return _gelu.lut_gelu_flat(x, interp=interp)
 
 
@@ -98,8 +113,12 @@ def lut_softmax(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
     tensor that is recording a gradient (:func:`refuse_grad`)."""
     refuse_grad(x, "lut_softmax")
     if _walk.recorder is not None:
-        return _walk.charged(_cost.softmax_charge(x, fixed),
-                             _sm.lut_softmax_rows, x, fixed=fixed)
+        n = x.shape[-1] if x.ndim else 1
+        launch = ("lut_softmax", (_addr(x, torch.float32), 0,
+                                  x.numel() // n, n, int(fixed))
+                  ) if x.numel() else None
+        return _walk.charged_launch(_cost.softmax_charge(x, fixed), launch,
+                                    _sm.lut_softmax_rows, x, fixed=fixed)
     return _sm.lut_softmax_rows(x, fixed=fixed)
 
 
@@ -143,9 +162,15 @@ def int8_matmul(x_int, w_int, *, x_exp: int | None = None,
         m = x_int.numel() // max(k, 1)
         in_bytes = _walk.tensor_bytes(x_int) + _walk.tensor_bytes(w_int) + (
             0 if w_axis is None else _walk.tensor_bytes(w_axis))
+        fp = x_int.is_floating_point()
+        mode = int(residual_bits == 16) | fp << 3 | \
+            (w_shape is not None) << 4 | x_bits << 8
+        launch = ("int8_matmul", (
+            _addr(x_int, torch.float32 if fp else None), _addr(w_int), 0,
+            m, k, n, mode)) if m and n and k else None
         call = functools.partial(
-            _walk.charged, _cost.matmul_charge(m, k, n, in_bytes, 4 * m * n),
-            call)
+            _walk.charged_launch,
+            _cost.matmul_charge(m, k, n, in_bytes, 4 * m * n), launch, call)
     return call(
         x_int, w_int, shift=acc_exp - out_exp, clip16=residual_bits == 16,
         out_exp=out_exp, axis_exponents=w_axis, x_exp=x_exp, x_bits=x_bits,
@@ -158,9 +183,12 @@ def int8_matmul_raw(x_int: torch.Tensor, w_int: torch.Tensor, *,
     if _walk.recorder is not None:
         (k, n), m = w_int.shape, x_int.shape[0]
         in_bytes = _walk.tensor_bytes(x_int) + _walk.tensor_bytes(w_int)
-        return _walk.charged(
+        mode = int(bool(out_int16)) | (2 if out_int16 else 1) << 1 | 8 << 8
+        launch = ("int8_matmul", (_addr(x_int), _addr(w_int), 0, m, k, n,
+                                  mode)) if m and n and k else None
+        return _walk.charged_launch(
             _cost.matmul_charge(m, k, n, in_bytes,
-                                (2 if out_int16 else 4) * m * n),
+                                (2 if out_int16 else 4) * m * n), launch,
             _mm.int8_matmul_raw, x_int, w_int, shift=shift,
             out_int16=out_int16)
     return _mm.int8_matmul_raw(x_int, w_int, shift=shift, out_int16=out_int16)
@@ -179,8 +207,12 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
     call = _attn.lut_attention
+    block_k = fit_block(k.shape[2], ATTN_BLOCK_K)
     if _walk.recorder is not None:
-        call = functools.partial(_walk.charged,
-                                 _cost.attention_charge(q, k, v), call)
+        b, hq, lq, _ = q.shape
+        launch = ("lut_attention", (b, hq, k.shape[1], lq, k.shape[2], d,
+                                    block_k)) if b * hq and lq else None
+        call = functools.partial(_walk.charged_launch,
+                                 _cost.attention_charge(q, k, v), launch, call)
     return call(q, k, v, causal=causal, use_lut=use_lut, scale=scale,
-                block_k=fit_block(k.shape[2], ATTN_BLOCK_K))
+                block_k=block_k)

@@ -12,9 +12,11 @@ gradients of every parameter leaf, and ``optim.adamw.update`` writes new
 tensors.  Microbatches accumulate float32 gradients in a loop.  The
 reference's ``ShapeDtypeStruct`` trees (``input_specs``, ``params_shape``,
 ``decode_state_shape``) are tensors on the ``meta`` device: shape and
-dtype, no storage.  The mesh-sharded pieces — the sharding trees, the
-step programs and their lowering, the compressed gradient sync — wait for
-ROADMAP queue A item 4.
+dtype, no storage.  ``make_train_step(..., sync_mesh=)`` adds the
+compressed gradient sync (``dist.compress``; a ring of one on the
+port's one-device mesh); the mesh-sharded pieces — the sharding
+trees, the step programs and their lowering — wait for ROADMAP queue A
+item 4.
 """
 
 from __future__ import annotations
@@ -203,7 +205,8 @@ def accumulate(loss_fn, params: Pytree, batch: dict, n_micro: int, *args):
 
 
 def make_train_step(cfg: ModelConfig, shape: ShapeSpec, hp=None, n_micro=None,
-                    sync_mesh=None, qat=None):
+                    sync_mesh=None, sync_per_channel: bool = False,
+                    sync_bits: int = 8, qat=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     Gradient accumulation over ``n_micro`` microbatches; grads are
@@ -218,31 +221,62 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, hp=None, n_micro=None,
     weights; the step then threads the QAT state, ``(params, opt_state,
     qstate, batch) -> (params, opt_state, qstate, metrics)``.
 
-    ``sync_mesh`` (the compressed gradient sync) raises
-    ``NotImplementedError``: ROADMAP queue A item 4.
+    ``sync_mesh`` inserts the compressed gradient sync
+    (``dist.compress.compressed_grad_sync``, ``sync_per_channel`` scales,
+    ``sync_bits`` wide) between the gradients and the update, and the step
+    threads its error-feedback state: ``(params, opt_state, err, batch) ->
+    (params, opt_state, err, metrics)`` — with ``qat``, ``(params,
+    opt_state, qstate, err, batch)``.  The step donates ``err``: the new
+    residuals are written into its tensors, which it returns, so the
+    update runs beside one error state where the caller's reference
+    would otherwise keep the old one alive too.
     """
+    sync = None
     if sync_mesh is not None:
-        not_ported("sync_mesh (compressed gradient sync)", _MESH)
+        from repro_torch.dist import compress
+
+        def sync(grads, err):
+            synced, new_err = compress.compressed_grad_sync(
+                grads, err, sync_mesh, per_channel=sync_per_channel,
+                bits=sync_bits)
+            for old, new in zip(tree_leaves(err), tree_leaves(new_err)):
+                old.copy_(new)
+            return synced, err
     if qat is not None:
         from repro_torch.qat import train as qat_train
         return qat_train.make_qat_train_step(cfg, shape, hp=hp,
-                                             n_micro=n_micro, qat=qat)
+                                             n_micro=n_micro, qat=qat,
+                                             sync=sync)
     check_trainable(cfg)
     no_tf32()
     hp = hp or hparams_for(cfg)
     n_micro = n_micro or microbatches(cfg, shape)
     loss_fn = _loss(cfg)
 
-    def train_step(params, opt_state, batch):
+    def grads_of(params, batch):
         device = tree_leaves(params)[0].device
-        loss, grads = accumulate(lambda p, b: loss_fn(p, b, cfg), params,
-                                 to_device(batch, device), n_micro)
+        return accumulate(lambda p, b: loss_fn(p, b, cfg), params,
+                          to_device(batch, device), n_micro)
+
+    def finish(loss, grads, opt_state, params):
         new_params, new_opt, metrics = adamw.update(
             grads, opt_state, params, hp, scan_stacked=cfg.scan_layers)
         metrics["loss"] = loss
         return new_params, new_opt, metrics
 
-    return train_step
+    if sync is None:
+        def train_step(params, opt_state, batch):
+            loss, grads = grads_of(params, batch)
+            return finish(loss, grads, opt_state, params)
+        return train_step
+
+    def train_step_synced(params, opt_state, err, batch):
+        loss, grads = grads_of(params, batch)
+        grads, err = sync(grads, err)
+        new_params, new_opt, metrics = finish(loss, grads, opt_state, params)
+        return new_params, new_opt, err, metrics
+
+    return train_step_synced
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec):

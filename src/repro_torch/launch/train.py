@@ -13,6 +13,11 @@ manager):
     rerunning the same command resumes from the newest step complete in
     every tree (params, optimizer, QAT state),
   * straggler watchdog: an EWMA step-time monitor flags slow steps,
+  * the error-feedback compressed gradient sync (``--compressed-grads``,
+    ``--per-channel-scales``, ``--grad-bits``; ``dist.compress``): on one
+    device a ring of one, which quantises and dequantises every gradient
+    and carries the residual; the residuals are a third checkpoint tree
+    (``<ckpt-dir>/err``),
   * quantisation-aware training (``--qat``) under a runtime backend's
     numerics — ``--qat-backend cuda`` runs the hand-written LUT softmax
     (and, for a GELU model, the LUT GELU) in every training forward,
@@ -33,8 +38,8 @@ Usage (the card by default; the CPU only with ``--device cpu``)::
   python -m repro_torch.launch.train --arch internlm2-1.8b --steps 8 \\
       --global-batch 8 --seq-len 256 --qat --qat-backend cuda
 
-The mesh flags (``--data``/``--model`` above 1) and
-``--compressed-grads`` wait for ROADMAP queue A item 4.
+The mesh flags (``--data``/``--model`` above 1) wait for ROADMAP queue A
+item 4.3.
 """
 
 from __future__ import annotations
@@ -83,7 +88,8 @@ class TrainResult:
     time of every step it ran (``step_ms``: the step and the read of its
     loss, which waits for the device), the step it resumed from (or
     ``None``), the QAT spec and the exported artifact (``None`` without
-    ``--qat``)."""
+    ``--qat``), and the error-feedback state (``None`` without
+    ``--compressed-grads``)."""
 
     params: Any
     opt_state: Any
@@ -94,6 +100,7 @@ class TrainResult:
     resumed_from: int | None
     qat_spec: Any = None
     export: Any = None
+    err: Any = None
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -113,7 +120,14 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fail-at-step", type=int, default=-1,
                     help="inject a crash at this step (recovery demo)")
     ap.add_argument("--compressed-grads", action="store_true",
-                    help="int8 error-feedback gradient sync (not ported)")
+                    help="int8 error-feedback gradient sync on the mesh's "
+                         "slow axis (dist.compress)")
+    ap.add_argument("--per-channel-scales", action="store_true",
+                    help="per-channel payload scales for --compressed-grads")
+    ap.add_argument("--grad-bits", type=int, default=8, choices=(4, 8),
+                    help="wire width for --compressed-grads payloads "
+                         "(4: nibble-packed via the shared core.quant "
+                         "codec, half the int8 wire bytes)")
     ap.add_argument("--qat", action="store_true",
                     help="quantisation-aware training: the loss forward "
                          "runs eq-9 fake-quant params under --qat-backend's "
@@ -186,27 +200,33 @@ def _qat_spec(args, cfg, device, ap):
     return spec, fine_classes
 
 
-def _restore(args, params, opt_state, qstate):
+def _restore(args, params, opt_state, qstate, err):
     """Resume from the newest step complete in EVERY tree: the optimizer
     save runs in a thread, so a crash can leave params one step ahead;
-    the QAT state (the learned exponent and the step counter) must
-    restore with the params or the exported recipe would drift."""
+    with ``--compressed-grads`` the error-feedback residuals are a third
+    tree (dropping them would break the telescoping drift bound at every
+    restart); the QAT state (the learned exponent and the step counter)
+    must restore with the params or the exported recipe would drift."""
     cand = [manager.latest_step(args.ckpt_dir),
             manager.latest_step(args.ckpt_dir + "/opt")]
+    if err is not None:
+        cand.append(manager.latest_step(args.ckpt_dir + "/err"))
     if qstate is not None:
         cand.append(manager.latest_step(args.ckpt_dir + "/qat"))
     if cand[0] is not None and any(c is None for c in cand[1:]):
         print(f"[restore] params checkpoint at step {cand[0]} has no "
-              "complete optimizer/QAT state — starting from step 0")
+              "complete optimizer/error/QAT state — starting from step 0")
     latest = None if any(c is None for c in cand) else min(cand)
     if latest is None:
-        return params, opt_state, qstate, None
+        return params, opt_state, qstate, err, None
     print(f"[restore] resuming from step {latest}", flush=True)
     params = manager.restore(args.ckpt_dir, latest, params)
     opt_state = manager.restore(args.ckpt_dir + "/opt", latest, opt_state)
+    if err is not None:
+        err = manager.restore(args.ckpt_dir + "/err", latest, err)
     if qstate is not None:
         qstate = manager.restore(args.ckpt_dir + "/qat", latest, qstate)
-    return params, opt_state, qstate, latest
+    return params, opt_state, qstate, err, latest
 
 
 def _whisper_batch(args, cfg, step) -> dict:
@@ -245,8 +265,6 @@ def main(argv=None) -> TrainResult:
     args = ap.parse_args(argv)
     if args.data * args.model != 1:
         steps.not_ported("a device mesh (--data/--model)", "item 4 (dist)")
-    if args.compressed_grads:
-        steps.not_ported("--compressed-grads", "item 4 (dist)")
     entry = registry.get(args.arch)
     cfg = entry.smoke if args.smoke else entry.config
     if args.distill_teacher_arch and not args.qat:
@@ -273,15 +291,25 @@ def main(argv=None) -> TrainResult:
     if qat_spec is not None:
         from repro_torch import qat as qat_mod
         qstate = qat_mod.init_qat_state(qat_spec, device)
+    err = None
+    if args.compressed_grads:
+        from repro_torch.dist import compress
+        err = compress.init_error_state(params)
 
     resumed_from, start_step = None, 0
     if args.ckpt_dir:
-        params, opt_state, qstate, resumed_from = _restore(
-            args, params, opt_state, qstate)
+        params, opt_state, qstate, err, resumed_from = _restore(
+            args, params, opt_state, qstate, err)
         start_step = resumed_from or 0
 
-    train_step = steps.make_train_step(cfg, shape, hp, n_micro=1,
-                                       qat=qat_spec)
+    sync_mesh = None
+    if args.compressed_grads:
+        from repro_torch.launch import mesh as mesh_mod
+        sync_mesh = mesh_mod.make_host_mesh(args.data, args.model)
+    train_step = steps.make_train_step(
+        cfg, shape, hp, n_micro=1, sync_mesh=sync_mesh,
+        sync_per_channel=args.per_channel_scales, sync_bits=args.grad_bits,
+        qat=qat_spec)
     mon = StragglerMonitor()
     losses, step_ms = [], []
     pending = None
@@ -294,9 +322,15 @@ def main(argv=None) -> TrainResult:
             batch = steps.to_device(_batch(args, cfg, step, fine_classes),
                                     device)
             t0 = time.perf_counter()
-            if qstate is not None:
+            if qstate is not None and err is not None:
+                params, opt_state, qstate, err, metrics = train_step(
+                    params, opt_state, qstate, err, batch)
+            elif qstate is not None:
                 params, opt_state, qstate, metrics = train_step(
                     params, opt_state, qstate, batch)
+            elif err is not None:
+                params, opt_state, err, metrics = train_step(
+                    params, opt_state, err, batch)
             else:
                 params, opt_state, metrics = train_step(params, opt_state,
                                                         batch)
@@ -315,6 +349,9 @@ def main(argv=None) -> TrainResult:
                 if pending is not None:
                     pending.join()
                 manager.save(args.ckpt_dir, step + 1, params, blocking=True)
+                if err is not None:
+                    manager.save(args.ckpt_dir + "/err", step + 1, err,
+                                 blocking=True)
                 if qstate is not None:
                     manager.save(args.ckpt_dir + "/qat", step + 1, qstate,
                                  blocking=True)
@@ -334,7 +371,8 @@ def main(argv=None) -> TrainResult:
     print("training complete.", flush=True)
     return TrainResult(params=params, opt_state=opt_state, qstate=qstate,
                        cfg=cfg, losses=losses, step_ms=step_ms,
-                       resumed_from=resumed_from, qat_spec=qat_spec, export=ex)
+                       resumed_from=resumed_from, qat_spec=qat_spec, export=ex,
+                       err=err)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,9 @@
 A bench ledger is a JSONL trajectory: every sweep row lands as one JSON
 line with full provenance (git commit, torch and CUDA versions, the card
 and its power limit, roofline calibration id), so "did this change make
-`cuda` slower" is a query, not archaeology.  The port's benchmark twins
-(ROADMAP queue A item 2) will write ``BENCH_torch_history.jsonl``; until
-then :func:`provenance` stamps the flight recorder's dumps
+`cuda` slower" is a query, not archaeology.  No benchmark of the port
+writes one yet (the twins of ``benchmarks/`` are not in this round);
+:func:`provenance` stamps the flight recorder's dumps
 (``telemetry.flight``).
 
 Entry schema (one line each, append-only, never rewritten)::

@@ -20,8 +20,12 @@ freeze are ``torch.where``s on the device, as in the reference.
 
 Knobs (QATConfig): delayed start, exponent learning with a freeze step,
 optional eq-9 input fake-quant, and optional distillation
-(``qat.distill``) from a float teacher.  Composition with the compressed
-gradient sync waits for ROADMAP queue A item 4.
+(``qat.distill``) from a float teacher.  With the compressed gradient
+sync (``steps.make_train_step(..., sync_mesh=...)``) the step threads its
+error-feedback state after the QAT state::
+
+    step(params, opt_state, qstate, err, batch)
+        -> (params, opt_state, qstate, err, metrics)
 """
 
 from __future__ import annotations
@@ -182,14 +186,17 @@ def grad_view(params: Pytree, spec: QATSpec) -> Pytree:
                     if spec.recipe._quantizes(leaf) else leaf, params)
 
 
-def make_qat_train_step(cfg, shape, hp=None, n_micro=None, *, qat: QATSpec):
+def make_qat_train_step(cfg, shape, hp=None, n_micro=None, *, qat: QATSpec,
+                        sync=None):
     """The QAT reading of ``steps.make_train_step`` (which delegates here).
 
     Per step: (1) resolve this step's weight exponent (learning /
     frozen), (2) fake-quant the shadow params (STE) and run the loss
     under the backend's approx modes — plain CE, or KD when
-    ``qat.distill`` is set — and take its gradients, (3) AdamW on the
-    float shadow weights, (4) advance ``qstate``.
+    ``qat.distill`` is set — and take its gradients, (3) with ``sync``
+    (``(grads, err) -> (grads, err)``, the compressed gradient sync) pass
+    them through it, (4) AdamW on the float shadow weights, (5) advance
+    ``qstate``.
     """
     from repro_torch.launch import steps
 
@@ -198,7 +205,7 @@ def make_qat_train_step(cfg, shape, hp=None, n_micro=None, *, qat: QATSpec):
     loss_at = make_qat_loss(cfg, qat)
     steps.no_tf32()
 
-    def train_step(params, opt_state, qstate, batch):
+    def grads_of(params, qstate, batch):
         device = tree_leaves(params)[0].device
         qat.check_device(device)
         batch = steps.to_device(batch, device)
@@ -206,6 +213,9 @@ def make_qat_train_step(cfg, shape, hp=None, n_micro=None, *, qat: QATSpec):
         active = qstate["step"] >= qat.config.start_step
         loss, grads = steps.accumulate(loss_at, grad_view(params, qat),
                                        batch, n_micro, e, active)
+        return loss, grads, e, active
+
+    def finish(loss, grads, opt_state, params, qstate, e, active):
         new_params, new_opt, metrics = adamw.update(
             grads, opt_state, params, hp, scan_stacked=cfg.scan_layers)
         metrics.update(loss=loss, weight_exponent=e,
@@ -213,7 +223,20 @@ def make_qat_train_step(cfg, shape, hp=None, n_micro=None, *, qat: QATSpec):
         new_q = {"step": qstate["step"] + 1, "weight_exponent": e}
         return new_params, new_opt, new_q, metrics
 
-    return train_step
+    if sync is None:
+        def train_step(params, opt_state, qstate, batch):
+            loss, grads, e, active = grads_of(params, qstate, batch)
+            return finish(loss, grads, opt_state, params, qstate, e, active)
+        return train_step
+
+    def train_step_synced(params, opt_state, qstate, err, batch):
+        loss, grads, e, active = grads_of(params, qstate, batch)
+        grads, err = sync(grads, err)
+        new_params, new_opt, new_q, metrics = finish(
+            loss, grads, opt_state, params, qstate, e, active)
+        return new_params, new_opt, new_q, err, metrics
+
+    return train_step_synced
 
 
 def finetune_qat(cfg, params, spec: QATSpec, n_steps: int, *, lr: float = 1e-3,

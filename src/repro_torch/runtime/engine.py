@@ -89,11 +89,6 @@ def _tree_bytes(tree) -> int:
                if isinstance(x, torch.Tensor))
 
 
-def _later(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: it waits for "
-                              f"ROADMAP queue A {item}")
-
-
 @dataclasses.dataclass
 class Engine:
     """A planned model: prepared params + pinned execution config.
@@ -330,11 +325,12 @@ class Engine:
         model's totals (``repro_torch.perf``) plus the paper-style
         per-(stage, op) table priced on the RV32 MCU model — the one-stop
         answer to "what does this plan cost and where".  ``analyze=True``
-        (the reference's static-analysis verdict) waits for ROADMAP queue
-        A item 5 and raises."""
-        if analyze:
-            _later("Engine.describe(analyze=True)",
-                   "item 5 (the analysis passes)")
+        appends the static-analysis verdict (``repro_torch.analysis``),
+        running the pass pipeline on first use; a verdict cached by an
+        earlier ``check_engine`` call is appended either way."""
+        if analyze and not hasattr(self, "_analysis_verdict"):
+            from repro_torch import analysis
+            analysis.check_engine(self)
         q = "" if self.recipe is None else \
             f", w=2^{self.recipe.weight_exponent}" \
             f"/x=2^{self.recipe.input_exponent} " \
@@ -346,10 +342,12 @@ class Engine:
             ", kernels=cuda (their plain versions on the cpu)"
         attn = "" if self.exec_cfg.attn_impl == "xla" else \
             f", attn={self.exec_cfg.attn_impl}"
+        verdict = getattr(self, "_analysis_verdict", None)
+        verdict = f" | {verdict}" if verdict else ""
         line = (f"Engine[{self.backend.name}] {self.exec_cfg.name} on "
                 f"{self.device}: params {self.param_bytes} B, "
                 f"rom {self.rom_bytes} B, lut {self.lut_bytes} B{q}{kern}"
-                f"{attn}")
+                f"{attn}{verdict}")
         if cost:
             from repro_torch import perf
             rep = perf.engine_cost(self, batch=1)
