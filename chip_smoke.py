@@ -396,6 +396,25 @@ quickest proof that the port still builds and starts there:
                        variant, with the card's occupancy, at every shape.
                        The log is off in every other phase and inside
                        every timing, so no timed launch pays for it.
+25. ``mesh``           the sharded step (ROADMAP A4.2 / A4.3) on a one-rank
+                       NCCL mesh ``(data, model) = (1, 1)`` on the card
+                       (NCCL refuses two ranks on one card; the multi-rank
+                       contract is held over gloo CPU ranks by
+                       ``tests/test_torch_mesh.py``): internlm2-1.8b at
+                       full width, 2 steps of 8 x 256 through
+                       ``launch.train --data 1 --model 1`` (params and
+                       optimizer state placed as ``DTensor`` s by their
+                       specs) against the same 2 steps off the mesh —
+                       losses and every parameter ``torch.equal``, p50 ms
+                       a step, peak GB, ATen ops a step side by side;
+                       granite-moe-3b-a800m at full width, a prefill of
+                       4 x 63 and a decode step through the
+                       expert-parallel branch against the local branch
+                       (logits and dropped slots equal); KWT-1 QAT on
+                       ``--qat-backend cuda`` on the mesh against off it,
+                       plain and with ``--compressed-grads`` (the ring
+                       over the mesh's data axis), ``torch.equal``.  The
+                       mesh runs are the ``mesh`` path.
 
    ``lm_dense_smoke`` (14) also runs the rwkv6-3b smoke config (and its
    fused-projection and padded-head variants) and the hymba-1.5b smoke
@@ -414,8 +433,8 @@ the train phases (11, 12), the LM server with its ``flash_lut`` forward
 (13), the int8-cache scheduler run (``lm_int8_kv``), the moe server
 (15), the two recurrent LMs' drain batches (16, 17) and the whisper
 clips with their ``flash_lut`` forward (18), the LM launcher's runs
-(19: internlm2's float and QAT runs, the smoke LM's three) and the
-example twins (21) are the main
+(19: internlm2's float and QAT runs, the smoke LM's three), the
+example twins (21) and the mesh runs (25) are the main
 paths: the
 counters go to 0
 just before each group and are read just after it; the launches of the
@@ -5112,6 +5131,190 @@ def phase_compress(dev) -> tuple:
     return path, checks, expected
 
 
+MESH_LM_ARGS = ["--arch", LM_NAME, "--steps", "2", "--global-batch", "8",
+                "--seq-len", "256", "--seed", "0"]
+MESH_KWT1_ARGS = ["--arch", "kwt-1", "--qat", "--qat-backend", "cuda",
+                  "--steps", "2", "--global-batch", "64"]
+MESH_ARGS = ["--data", "1", "--model", "1"]
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group on the card (a localhost rendezvous),
+    destroyed on exit."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _trees_equal(what: str, a, b) -> int:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{what}: {len(la)} leaves against {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: leaf {i} differs (max abs "
+                                 f"{max_abs_err(x, y)})")
+    return len(la)
+
+
+def mesh_lm_run(argv, dev) -> tuple:
+    """internlm2-1.8b's launcher run: (result, its figures)."""
+    torch.cuda.reset_peak_memory_stats()
+    result, _ = run_main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(result.losses)) or len(result.losses) != 2:
+        raise AssertionError(f"{argv}: losses {result.losses}")
+    b = int(argv[argv.index("--global-batch") + 1])
+    s = int(argv[argv.index("--seq-len") + 1])
+    n_ops = count_step_ops(
+        lm_step_of(result), (result.params, result.opt_state),
+        steps.to_device(lm_batch_for(result.cfg, 0, 2, b, s), dev))
+    return result, {"argv": argv, "losses": result.losses,
+                    "step_ms": result.step_ms,
+                    "p50_ms_per_step": statistics.median(result.step_ms),
+                    "peak_gb": peak / 1e9, "aten_ops_per_step": n_ops}
+
+
+def mesh_moe_calls(eng, toks, drops: list) -> tuple:
+    """A prefill of ``toks`` and one decode step (its greedy token) on a
+    fresh state; every moe block's dropped slots appended to ``drops``."""
+    slots = lm_moe._slots
+
+    def counting(idx, **kw):
+        lid, pos, keep = slots(idx, **kw)
+        drops.append(int((~keep).sum()))
+        return lid, pos, keep
+
+    lm_moe._slots = counting
+    try:
+        state = eng.init_decode_state(toks.shape[0], toks.shape[1] + 1)
+        pre, state = eng.prefill(toks, state)
+        nxt = pre.argmax(-1).cpu().numpy().astype(np.int32)
+        dec, _ = eng.decode_step(nxt, state)
+    finally:
+        lm_moe._slots = slots
+    return pre, dec
+
+
+def phase_mesh(dev) -> tuple:
+    """Phase 25 (see the module docstring).  The off-mesh runs come first
+    (without a process group the launcher's mesh is the one-device
+    ``HostMesh``); the mesh runs then go on the one-rank NCCL group.
+    Returns the mesh path's launches, the checks' and the path's
+    expected."""
+    from repro_torch.dist import ctx, sharding
+    out = {"phase": "mesh"}
+    checks = ops.launch_counts()
+    off, off_row = mesh_lm_run(MESH_LM_ARGS, dev)
+    # held on the host, so that the mesh run's peak is its own
+    off_params = tree_map(lambda t: t.cpu(), off.params)
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    kwt_off = [run_main(MESH_KWT1_ARGS + extra)[0]
+               for extra in ([], ["--compressed-grads"])]
+    checks = _rise(checks)
+    kcfg = registry.get("kwt-1").config
+    n_kwt = int(MESH_KWT1_ARGS[MESH_KWT1_ARGS.index("--steps") + 1])
+    mcfg = registry.get(MOE_NAME).config
+    expected = _plus(_plus(train_launches(kcfg, n_kwt),
+                           train_launches(kcfg, n_kwt)),
+                     lm_expected(mcfg, 2))
+    path = {n: 0 for n in KERNEL_NAMES}
+    with one_rank_nccl():
+        mesh = mesh_mod.make_host_mesh(1, 1)
+        out["mesh"] = {"type": type(mesh).__name__, "device": mesh.device_type,
+                       "shape": list(mesh.shape),
+                       "axes": list(mesh.mesh_dim_names)}
+        # (a) internlm2-1.8b at full width through the launcher
+        on, on_row = mesh_lm_run(MESH_LM_ARGS + MESH_ARGS, dev)
+        if not sharding.is_dtensor(tree_leaves(on.params)[0]):
+            raise AssertionError("the mesh run's params are not placed")
+        if on.losses != off_row["losses"]:
+            raise AssertionError(f"mesh losses {on.losses} against "
+                                 f"{off_row['losses']} off the mesh")
+        n = _trees_equal(f"{LM_NAME} mesh params",
+                         tree_map(lambda t: t.cpu(), sharding.local(on.params)),
+                         off_params)
+        out["internlm2"] = {"off_mesh": off_row, "mesh": on_row,
+                            "losses_equal": True, "params_equal": n}
+        del on, off_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) + (d) KWT-1 QAT on the cuda kernels, plain and compressed
+        out["kwt_1"] = {}
+        for extra, ref_run in zip(([], ["--compressed-grads"]), kwt_off):
+            before = ops.launch_counts()
+            got, _ = run_main(MESH_KWT1_ARGS + MESH_ARGS + extra)
+            rose = _rise(before)
+            if rose != train_launches(kcfg, n_kwt):
+                raise AssertionError(f"KWT-1 mesh QAT {extra} launched "
+                                     f"{rose}")
+            path = _plus(path, rose)
+            if got.losses != ref_run.losses:
+                raise AssertionError(f"KWT-1 mesh QAT {extra} losses "
+                                     f"{got.losses} against {ref_run.losses}")
+            n = _trees_equal(f"KWT-1 mesh QAT {extra} params",
+                             sharding.local(got.params), ref_run.params)
+            if extra:
+                _trees_equal("KWT-1 mesh error state", got.err, ref_run.err)
+            out["kwt_1"]["compressed" if extra else "plain"] = {
+                "losses": got.losses, "params_equal": n, "launches": rose,
+                "p50_ms_per_step": statistics.median(got.step_ms),
+                "p50_ms_per_step_off_mesh": statistics.median(
+                    ref_run.step_ms)}
+        del kwt_off
+        # (b) granite-moe-3b-a800m at full width: the expert-parallel branch
+        params = lm_model.init_params(
+            mcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        eng = runtime.compile_model(mcfg, params, backend="cuda", device=dev)
+        del params
+        toks = np.random.default_rng(7).integers(
+            0, mcfg.vocab_size, (LM_SLOTS, 63)).astype(np.int32)
+        before = ops.launch_counts()
+        local_drops, ep_drops = [], []
+        local = mesh_moe_calls(eng, toks, local_drops)
+        checks = _plus(checks, _rise(before))
+        before = ops.launch_counts()
+        with mesh, ctx.mesh_context(mesh_mod.dp_axes(mesh)):
+            if not ctx._mesh_active():
+                raise AssertionError("the mesh context is not active")
+            ep = mesh_moe_calls(eng, toks, ep_drops)
+        rose = _rise(before)
+        path = _plus(path, rose)
+        for what, a, b in (("prefill", ep[0], local[0]),
+                           ("decode", ep[1], local[1])):
+            require_equal(f"{MOE_NAME} expert-parallel {what} logits", a, b)
+        if ep_drops != local_drops:
+            raise AssertionError(f"dropped slots {ep_drops} against "
+                                 f"{local_drops}")
+        out["granite_moe"] = {"tokens": list(toks.shape),
+                              "capacity_factor": mcfg.capacity_factor,
+                              "logits_equal": True,
+                              "dropped": sum(ep_drops),
+                              "dropped_per_call_layer": ep_drops,
+                              "launches": rose}
+        del eng, local, ep
+        gc.collect()
+        torch.cuda.empty_cache()
+    if path != expected:
+        raise AssertionError(f"the mesh path launched {path}, expected "
+                             f"{expected}")
+    out["launches"], out["check_launches"] = path, checks
+    emit(out)
+    return path, checks, expected
+
+
 def phase_geometry_mirror(dev) -> None:
     """Phase 24: every launch of this run against its kernel's C query."""
     t0 = time.perf_counter()
@@ -5422,6 +5625,20 @@ def main() -> None:
         raise AssertionError(f"examples launches {launches['examples']} are "
                              f"not those of its twins, {rose}")
     seconds["examples"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the mesh path: the runs on the one-rank NCCL mesh, less the launches
+    # of their off-mesh twins and of the moe's local branch
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    rose, m_checks, m_exp = phase_mesh(dev)
+    counted = ops.launch_counts()
+    launches["mesh"] = {n: counted[n] - m_checks[n] for n in counted}
+    expected["mesh"] = m_exp
+    if launches["mesh"] != rose:
+        raise AssertionError(f"mesh launches {launches['mesh']} are not "
+                             f"those of its mesh runs, {rose}")
+    seconds["mesh"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_geometry_mirror(dev)
     seconds["geometry_mirror"] = time.perf_counter() - t0

@@ -14,8 +14,8 @@ One cell owns:
 * optionally a :class:`telemetry.FlightRecorder` fed by every hop.
 
 Entering the cell (``with cell:``) activates the host mesh and the
-``dist.ctx`` data-parallel context, which are no-ops on the port's one
-device (ROADMAP queue A item 4 brings meshes).  ``launch/stream_serve.py``
+``dist.ctx`` data-parallel context: no-ops on the one-device
+``HostMesh`` (no process group), the mesh path on a ``DeviceMesh``.  ``launch/stream_serve.py``
 and ``launch/serve.py`` are thin CLIs over this class.
 """
 

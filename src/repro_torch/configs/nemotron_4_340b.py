@@ -2,9 +2,9 @@
 vocab=256000 — GQA, squared-ReLU MLP.  [arXiv:2402.16819]
 
 Largest assigned arch (~340B params).  Only its smoke config runs in
-the port: the full one needs sharding across many cards (ROADMAP queue A
-item 4), and its head_dim of 192 is above the flash-LUT attention
-kernel's D <= 128 (ROADMAP B2).
+the port: the full one needs sharding across many cards (the port's mesh
+runs on one card, or on gloo CPU ranks), and its head_dim of 192 is
+above the flash-LUT attention kernel's D <= 128 (ROADMAP B2).
 """
 from repro_torch.configs.base import ArchEntry, LM_SHAPES, ModelConfig
 

@@ -1,7 +1,10 @@
 """repro_torch.dist — the port's distribution layer.
 
-The mesh context the serving cell enters (:mod:`repro_torch.dist.ctx`,
-single-device no-ops) and the error-feedback compressed gradient sync
-(:mod:`repro_torch.dist.compress`, a ring over a ``torch.distributed``
-process group).  The mesh programs are ROADMAP queue A items 4.2-4.4.
+Partition specs and their ``torch.distributed.tensor`` placements
+(:mod:`repro_torch.dist.sharding`), the mesh context the model code
+consults at its activation boundaries (:mod:`repro_torch.dist.ctx`), a
+train step on a ``DeviceMesh`` in local view
+(:mod:`repro_torch.dist.spmd`) and the error-feedback compressed gradient
+sync (:mod:`repro_torch.dist.compress`).  Lowering and pricing the step
+programs is ROADMAP queue A item 4.4.
 """

@@ -13,10 +13,13 @@ moves the packed payload plus its f32 scale one position around the ring
 and every rank accumulates the dequantised shards in f32 in hop order —
 its own, then r-1, r-2, ... — and divides by the ring size (mean
 semantics, matching a data-parallel gradient all-reduce).  The ring is a
-``torch.distributed`` process group passed as ``group`` (the port's
-counterpart of the mesh's slow axis); without one it is the mesh axis
-itself, a ring of one on the port's single-device ``HostMesh``, which
-quantises and dequantises and communicates nothing.
+``torch.distributed`` process group passed as ``group``; without one it
+is the mesh's slow axis (:func:`reduce_axis`): on a ``DeviceMesh`` that
+axis's process group, on the single-device ``HostMesh`` a ring of one,
+which quantises and dequantises and communicates nothing.  A sharded
+step (``dist.spmd``) hands the sync gradients already meaned over the DP
+ranks, so every rank of the ring holds the same leaves, as the
+reference's replicated ``shard_map`` operands do.
 
 Error feedback invariant (per leaf, in f32):
 
@@ -39,15 +42,17 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.dist import sharding
 
 
 def reduce_axis(mesh) -> str:
     """The slow axis the compressed sync rings over: 'pod' when present
     (inter-pod DCN), else the outermost data axis."""
+    names = sharding.axis_names(mesh)
     for name in ("pod", "data"):
-        if name in mesh.axis_names:
+        if name in names:
             return name
-    return mesh.axis_names[0]
+    return names[0]
 
 
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -135,13 +140,11 @@ def _ring_mean(payloads, own, n, group, *, bits: int = 8):
 
 def ring_size(mesh, axis=None, group=None) -> int:
     """The ring the sync runs over: the process group's size, else the
-    size of ``mesh``'s ``axis`` (the port's ``HostMesh``: its ``shape``
-    beside its ``axis_names``)."""
+    size of ``mesh``'s ``axis``."""
     if group is not None:
         import torch.distributed as dist
         return dist.get_world_size(group)
-    axis = axis or reduce_axis(mesh)
-    return int(dict(zip(mesh.axis_names, mesh.shape))[axis])
+    return sharding.axis_size(mesh, axis or reduce_axis(mesh))
 
 
 def compressed_grad_sync(grads, err, mesh, axis=None,
@@ -154,14 +157,16 @@ def compressed_grad_sync(grads, err, mesh, axis=None,
     comes from :func:`init_error_state` on step 0 and is threaded through
     subsequent calls.  ``group`` (a ``torch.distributed`` process group)
     is the ring; without one the ring is ``mesh``'s ``axis`` (default
-    :func:`reduce_axis`), which communicates only when it is longer than
-    one — and a mesh of more than one device is not ported yet.
+    :func:`reduce_axis`): on a ``DeviceMesh`` that axis's process group,
+    which communicates only when it is longer than one.
     """
     n = ring_size(mesh, axis, group)
     if n > 1 and group is None:
-        raise NotImplementedError(
-            f"a mesh ring of {n} devices is not ported yet: it waits for "
-            "ROADMAP queue A item 4 (pass a torch.distributed group)")
+        if not sharding.is_device_mesh(mesh):
+            raise ValueError(f"a ring of {n} over a HostMesh: a HostMesh is "
+                             "one device (pass a DeviceMesh or a group)")
+        names = sharding.axis_names(mesh)
+        group = mesh.get_group(names.index(axis or reduce_axis(mesh)))
     leaves, err_leaves = tree_leaves(grads), tree_leaves(err)
     if len(leaves) != len(err_leaves):
         raise ValueError("error state does not match the gradient tree "

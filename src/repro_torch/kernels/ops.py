@@ -11,6 +11,15 @@ wrapper reports what its kernel computes — op class, operations, bytes
 kernel's geometry query, ``analysis.geometry``), and its own ATen ops go
 unrecorded, so a plan prices and checks the same on either device.
 
+On a device mesh no wrapper meets a sharded operand: the step's forward
+runs on each rank's local tensors (``dist.spmd`` gathers the weights
+first, as GSPMD gathers the operand of an opaque call), so the softmax
+and the GELU take the rank's own rows — their functions are row-local —
+and the matmul and the attention whole operands of the rank's batch
+shard.  A ``DTensor`` that reaches a wrapper is refused
+(:func:`refuse_dtensor`): its raw pointer is one shard, and the plain
+version would run in its place unseen on a CPU mesh.
+
 The CUDA kernels mask their ragged edges themselves, so nothing is padded
 here and the reference's ``pad_to_block`` is not ported.  ``fit_block``
 is: the attention kernel's key tiles must end where the reference's do.
@@ -84,6 +93,16 @@ def refuse_grad(x: torch.Tensor, what: str) -> None:
             "in its forward), or call it under torch.no_grad()")
 
 
+def refuse_dtensor(x, what: str) -> None:
+    """Raise for a ``DTensor`` operand (see the module docstring)."""
+    if type(x) is not torch.Tensor and isinstance(x, torch.Tensor):
+        from repro_torch.dist import sharding
+        if sharding.is_dtensor(x):
+            raise TypeError(
+                f"{what} got a DTensor: a kernel takes the rank's local "
+                "tensors (dist.spmd gathers the weights before the forward)")
+
+
 def _addr(t: torch.Tensor, dtype=None) -> int:
     """The address a launch would hand its kernel for ``t``: its own where
     the wrapper launches on it as it is, else (a fresh copy) 0 — every
@@ -98,6 +117,7 @@ def lut_gelu(x: torch.Tensor, *, interp: bool = False) -> torch.Tensor:
     """Piecewise LUT GELU over any-shaped input (output in ``x.dtype``).
     Refuses a tensor that is recording a gradient (:func:`refuse_grad`)."""
     refuse_grad(x, "lut_gelu")
+    refuse_dtensor(x, "lut_gelu")
     if _walk.recorder is not None:
         a = _addr(x)
         launch = ("lut_gelu", (a, a % 16, x.numel(),
@@ -112,6 +132,7 @@ def lut_softmax(x: torch.Tensor, *, fixed: bool = True) -> torch.Tensor:
     """LUT softmax along the last axis of any-shaped input.  Refuses a
     tensor that is recording a gradient (:func:`refuse_grad`)."""
     refuse_grad(x, "lut_softmax")
+    refuse_dtensor(x, "lut_softmax")
     if _walk.recorder is not None:
         n = x.shape[-1] if x.ndim else 1
         launch = ("lut_softmax", (_addr(x, torch.float32), 0,
@@ -154,6 +175,8 @@ def int8_matmul(x_int, w_int, *, x_exp: int | None = None,
         w_int = w_int.values if w_int.packed else w_int.int_values()
     if x_exp is None or w_exp is None:
         raise ValueError("raw int operands need explicit x_exp/w_exp")
+    refuse_dtensor(x_int, "int8_matmul")
+    refuse_dtensor(w_int, "int8_matmul")
     acc_exp = x_exp + w_exp
     out_exp = acc_exp if out_exp is None else out_exp
     call = _mm.int8_matmul_scaled
@@ -180,6 +203,8 @@ def int8_matmul(x_int, w_int, *, x_exp: int | None = None,
 def int8_matmul_raw(x_int: torch.Tensor, w_int: torch.Tensor, *,
                     shift: int = 0, out_int16: bool = False) -> torch.Tensor:
     """The raw accumulator of the kernel: int32, or int16 after the clip."""
+    refuse_dtensor(x_int, "int8_matmul_raw")
+    refuse_dtensor(w_int, "int8_matmul_raw")
     if _walk.recorder is not None:
         (k, n), m = w_int.shape, x_int.shape[0]
         in_bytes = _walk.tensor_bytes(x_int) + _walk.tensor_bytes(w_int)
@@ -204,6 +229,8 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The reference's query tile ``fit_block(Lq, 128)`` changes no result
     (query rows are independent) and is left to the kernel.
     """
+    for t in (q, k, v):
+        refuse_dtensor(t, "lut_attention")
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
     call = _attn.lut_attention

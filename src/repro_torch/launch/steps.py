@@ -13,20 +13,36 @@ tensors.  Microbatches accumulate float32 gradients in a loop.  The
 reference's ``ShapeDtypeStruct`` trees (``input_specs``, ``params_shape``,
 ``decode_state_shape``) are tensors on the ``meta`` device: shape and
 dtype, no storage.  ``make_train_step(..., sync_mesh=)`` adds the
-compressed gradient sync (``dist.compress``; a ring of one on the
-port's one-device mesh); the mesh-sharded pieces — the sharding
-trees, the step programs and their lowering — wait for ROADMAP queue A
-item 4.
+compressed gradient sync (``dist.compress``).
+
+The sharding trees are the reference's: ``param_pspecs``,
+``batch_pspec``, ``decode_state_pspecs`` (trees of
+``dist.sharding.P``), ``seq_axis_for`` (the Megatron-SP cells),
+``dp_for`` and ``microbatches`` over a mesh.  ``build_step_program``
+assembles a :class:`Program` — the step function, its meta-tensor
+arguments and per-leaf :class:`NamedSharding` s (spec and placements).
+A step built here runs sharded when its parameters are placed on a
+``DeviceMesh`` (``dist.sharding.place``): ``dist.spmd`` gathers the
+weights, takes the rank's data shard of the batch, runs the step's
+gradients under ``ctx.mesh_context`` and means them over the data
+ranks, and ``optim.adamw.update`` updates each rank's shards.
+Lowering a program and the cost decomposition (``lower_program``,
+``cost_programs``) price programs rather than run them: ROADMAP queue A
+item 4.4.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.dist import sharding, spmd
+from repro_torch.dist.sharding import P
+from repro_torch.launch import mesh as meshlib
 from repro_torch.optim import adamw
 from repro_torch.runtime.engine import _model_module
 
@@ -52,7 +68,17 @@ MICROBATCHES = {
 INT8_MOMENT_ARCHS = {"nemotron-4-340b", "deepseek-moe-16b", "chameleon-34b",
                      "qwen2.5-14b"}
 
-_MESH = "item 4 (dist)"
+# archs whose train / prefill activations also shard the SEQUENCE dim
+# over the TP axis (Megatron-SP; the reference's table)
+SEQ_SHARD = {("nemotron-4-340b", "train_4k"), ("chameleon-34b", "train_4k"),
+             ("nemotron-4-340b", "prefill_32k"),
+             ("chameleon-34b", "prefill_32k")}
+
+_PRICING = "item 4.4 (launch/dryrun.py and the program pricing)"
+
+
+def seq_axis_for(cfg: ModelConfig, shape: ShapeSpec):
+    return "model" if (cfg.name, shape.name) in SEQ_SHARD else None
 
 
 def not_ported(what: str, item: str):
@@ -66,10 +92,15 @@ def hparams_for(cfg: ModelConfig) -> adamw.HParams:
 
 def microbatches(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> int:
     """Gradient-accumulation microbatches of the reference's table (1 for
-    any other arch or shape); a mesh's data-parallel split is item 4."""
+    any other arch or shape); over a mesh each microbatch must still
+    split over every data-parallel device."""
+    n = MICROBATCHES.get((cfg.name, shape.name), 1)
     if mesh is not None:
-        not_ported("microbatches over a mesh", _MESH)
-    return MICROBATCHES.get((cfg.name, shape.name), 1)
+        dp_total = spmd.dp_total(mesh, meshlib.dp_axes(mesh))
+        n = max(1, min(n, shape.global_batch // dp_total))
+        while shape.global_batch % (n * dp_total):
+            n -= 1
+    return n
 
 
 def model_module(cfg: ModelConfig):
@@ -116,22 +147,108 @@ def decode_state_shape(cfg: ModelConfig, shape: ShapeSpec):
         cfg, shape.global_batch, shape.seq_len, device="meta")
 
 
-def _mesh_only(name: str):
-    def fn(*args, **kw):
-        not_ported(f"{name} (a mesh's shardings and step programs)", _MESH)
-    fn.__name__ = name
-    fn.__doc__ = f"The reference's ``{name}``: ROADMAP queue A item 4."
-    return fn
+def batch_pspec(cfg: ModelConfig, shape: ShapeSpec, dp) -> dict:
+    """The batch's specs: its leading dim over the ``dp`` axes."""
+    bp, b2, b3 = P(dp), P(dp, None), P(dp, None, None)
+    if shape.kind == "decode":
+        return {"token": bp}
+    out = {"frames": b3} if cfg.family == "encdec" else {}
+    out["tokens"] = b2
+    if shape.kind == "train":
+        out["labels"] = b2
+    return out
 
 
-seq_axis_for = _mesh_only("seq_axis_for")
-batch_pspec = _mesh_only("batch_pspec")
-dp_for = _mesh_only("dp_for")
-param_pspecs = _mesh_only("param_pspecs")
-decode_state_pspecs = _mesh_only("decode_state_pspecs")
-build_step_program = _mesh_only("build_step_program")
-lower_program = _mesh_only("lower_program")
-cost_programs = _mesh_only("cost_programs")
+def dp_for(shape: ShapeSpec, mesh):
+    """The DP axes of this cell; ``None`` when the global batch cannot
+    split over every DP device (long_500k's batch of 1 is replicated)."""
+    dp = meshlib.dp_axes(mesh)
+    return dp if shape.global_batch % spmd.dp_total(mesh, dp) == 0 else None
+
+
+def param_pspecs(cfg: ModelConfig):
+    return model_module(cfg).param_specs(cfg)
+
+
+def decode_state_pspecs(cfg: ModelConfig, dp, tp_size=16):
+    return model_module(cfg).decode_state_specs(cfg, dp, tp_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``): ``placements``
+    are the ``torch.distributed.tensor`` ones of a ``DeviceMesh`` of the
+    same axis names."""
+
+    mesh: Any
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return sharding.placements(self.spec, self.mesh)
+
+
+@dataclasses.dataclass
+class Program:
+    """A step with its example arguments (meta tensors) and a
+    same-structure :class:`NamedSharding` tree for each argument."""
+
+    name: str
+    fn: Any
+    args: tuple
+    shardings: tuple
+    multiplier: float = 1.0
+    donate: tuple = ()
+    seq_axis: str | None = None   # Megatron-SP activation sharding
+    dp: Any = "auto"              # DP axes override (None = replicated batch)
+
+
+def _named(mesh, tree):
+    return tree_map(lambda spec: NamedSharding(mesh, spec), tree)
+
+
+def build_step_program(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Program:
+    """The whole step of a cell: train (donating params and optimizer
+    state), prefill or decode (donating the decode state)."""
+    dp = dp_for(shape, mesh)
+    batch = input_specs(cfg, shape)
+    batch_sh = _named(mesh, batch_pspec(cfg, shape, dp))
+    p_meta = params_shape(cfg)
+    p_sh = _named(mesh, param_pspecs(cfg))
+    if shape.kind == "train":
+        hp = hparams_for(cfg)
+        opt_meta = adamw.init(p_meta, hp)
+        opt_sh = _named(mesh, adamw.opt_state_specs(param_pspecs(cfg), hp))
+        fn = make_train_step(cfg, shape, hp,
+                             n_micro=microbatches(cfg, shape, mesh))
+        return Program(f"{cfg.name}:{shape.name}:train", fn,
+                       (p_meta, opt_meta, batch), (p_sh, opt_sh, batch_sh),
+                       donate=(0, 1), seq_axis=seq_axis_for(cfg, shape),
+                       dp=dp)
+    state = decode_state_shape(cfg, shape)
+    state_sh = _named(mesh, decode_state_pspecs(
+        cfg, dp, sharding.axis_size(mesh, "model")))
+    if shape.kind == "prefill":
+        return Program(f"{cfg.name}:{shape.name}:prefill",
+                       make_prefill_step(cfg, shape),
+                       (p_meta, state, batch), (p_sh, state_sh, batch_sh),
+                       donate=(1,), seq_axis=seq_axis_for(cfg, shape), dp=dp)
+    return Program(f"{cfg.name}:{shape.name}:decode",
+                   make_decode_step(cfg, shape),
+                   (p_meta, state, batch), (p_sh, state_sh, batch_sh),
+                   donate=(1,), dp=dp)
+
+
+def lower_program(prog: Program, mesh, seq_axis=None):
+    """The reference lowers and compiles a program for its memory and
+    cost analyses: ROADMAP queue A item 4.4."""
+    not_ported("lower_program (a program's lowering and pricing)", _PRICING)
+
+
+def cost_programs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> list:
+    """The reference's while-free component programs for the dry-run's
+    cost decomposition: ROADMAP queue A item 4.4."""
+    not_ported("cost_programs (the dry-run's cost decomposition)", _PRICING)
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +370,7 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, hp=None, n_micro=None,
     n_micro = n_micro or microbatches(cfg, shape)
     loss_fn = _loss(cfg)
 
+    @spmd.grads_on_mesh
     def grads_of(params, batch):
         device = tree_leaves(params)[0].device
         return accumulate(lambda p, b: loss_fn(p, b, cfg), params,

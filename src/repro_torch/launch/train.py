@@ -1,5 +1,5 @@
-"""Fault-tolerant training launcher, on one device: the KWT family and
-the LM families (dense, moe, rwkv, hybrid, encdec).
+"""Fault-tolerant training launcher: the KWT family and the LM families
+(dense, moe, rwkv, hybrid, encdec), on one device or a mesh of ranks.
 
 The twin of the reference's ``repro.launch.train`` with the same
 production code paths (``steps.make_train_step`` + the checkpoint
@@ -25,6 +25,18 @@ manager):
     teacher for KWT (``--distill-teacher-arch``), and the export of the
     trained artifact.
 
+On a mesh (``--data`` x ``--model`` ranks under ``torch.distributed.run``,
+which the launcher joins: NCCL on the card, gloo with ``--device cpu``)
+the weights are drawn whole on every rank from ``--seed`` and placed by
+``steps.param_pspecs``, the optimizer state by ``adamw.opt_state_specs``;
+every rank draws the global batch and the step takes its data shard
+(``steps.batch_pspec``, ``dist.spmd``); ``--compressed-grads`` rings over
+the mesh's data axis.  Checkpoints hold full tensors, written once (rank
+0) and placed on restore onto whatever mesh the restart builds, so a run
+resumes on another ``--data`` / ``--model`` shape; the error state's
+expert leaves, each model rank's own slice, are gathered over
+``"model"`` before the save and cut again on restore.
+
 An LM trains at ``--seq-len`` tokens (``--smoke``: its arch's reduced
 config), with its weights drawn from ``--seed`` on the device (full width
 on the card); a config with ``remat`` set checkpoints every layer.  With
@@ -37,16 +49,18 @@ Usage (the card by default; the CPU only with ``--device cpu``)::
       --distill-teacher-arch kwt-1 --steps 200 --ckpt-dir /tmp/ckpt
   python -m repro_torch.launch.train --arch internlm2-1.8b --steps 8 \\
       --global-batch 8 --seq-len 256 --qat --qat-backend cuda
-
-The mesh flags (``--data``/``--model`` above 1) wait for ROADMAP queue A
-item 4.3.
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --device cpu --data 2 --model 2 \\
+      --arch granite-8b --smoke --steps 8 --ckpt-dir /tmp/ckpt
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
+import os
 import time
 from typing import Any
 
@@ -57,6 +71,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import pipeline, prng
 from repro_torch.device import resolve_device
+from repro_torch.dist import ctx, sharding, spmd
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps
 from repro_torch.optim import adamw
 
@@ -200,6 +216,36 @@ def _qat_spec(args, cfg, device, ap):
     return spec, fine_classes
 
 
+def _join(args, device) -> None:
+    """Join the process group ``torch.distributed.run`` describes (its
+    ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` environment) unless the
+    caller has joined one: NCCL on the card, gloo on the CPU."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    n = args.data * args.model
+    if "WORLD_SIZE" not in os.environ:
+        if n > 1:
+            raise ValueError(
+                f"a ({args.data}, {args.model}) mesh needs {n} ranks: run "
+                f"under python -m torch.distributed.run --nproc-per-node {n}")
+        return
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+
+
+def _rank0() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _save(ckpt_dir, step, tree, *, blocking):
+    """Full tensors (gathered on every rank), written by rank 0."""
+    tree = sharding.full(tree)
+    if not _rank0():
+        return None
+    return manager.save(ckpt_dir, step, tree, blocking=blocking)
+
+
 def _restore(args, params, opt_state, qstate, err):
     """Resume from the newest step complete in EVERY tree: the optimizer
     save runs in a thread, so a crash can leave params one step ahead;
@@ -219,11 +265,15 @@ def _restore(args, params, opt_state, qstate, err):
     latest = None if any(c is None for c in cand) else min(cand)
     if latest is None:
         return params, opt_state, qstate, err, None
-    print(f"[restore] resuming from step {latest}", flush=True)
+    if _rank0():
+        print(f"[restore] resuming from step {latest}", flush=True)
+    if err is not None:
+        # saved whole (gather_slices); each rank takes its expert slices
+        err = spmd.cut_slices(manager.restore(
+            args.ckpt_dir + "/err", latest,
+            spmd.gather_slices(err, params)), params)
     params = manager.restore(args.ckpt_dir, latest, params)
     opt_state = manager.restore(args.ckpt_dir + "/opt", latest, opt_state)
-    if err is not None:
-        err = manager.restore(args.ckpt_dir + "/err", latest, err)
     if qstate is not None:
         qstate = manager.restore(args.ckpt_dir + "/qat", latest, qstate)
     return params, opt_state, qstate, err, latest
@@ -263,13 +313,17 @@ def _batch(args, cfg, step, fine_classes) -> dict:
 def main(argv=None) -> TrainResult:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.data * args.model != 1:
-        steps.not_ported("a device mesh (--data/--model)", "item 4 (dist)")
     entry = registry.get(args.arch)
     cfg = entry.smoke if args.smoke else entry.config
     if args.distill_teacher_arch and not args.qat:
         raise ValueError("--distill-teacher-arch is the KD path of --qat")
     device = resolve_device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    _join(args, device)
+    mesh = mesh_mod.make_host_mesh(args.data, args.model, device)
+    on_mesh = sharding.is_device_mesh(mesh)
     kwt = cfg.family == "kwt"
     seq_len = cfg.input_dim[1] if kwt else args.seq_len
     shape = ShapeSpec("custom", seq_len, args.global_batch, "train")
@@ -291,21 +345,29 @@ def main(argv=None) -> TrainResult:
     if qat_spec is not None:
         from repro_torch import qat as qat_mod
         qstate = qat_mod.init_qat_state(qat_spec, device)
+
+    p_specs = steps.param_pspecs(cfg)
+    o_specs = adamw.opt_state_specs(p_specs, hp)
+    if on_mesh:
+        params = sharding.place(params, p_specs, mesh)
+        opt_state = sharding.place(opt_state, o_specs, mesh)
     err = None
     if args.compressed_grads:
         from repro_torch.dist import compress
-        err = compress.init_error_state(params)
+        err = spmd.compute_zeros(params) if on_mesh else \
+            compress.init_error_state(params)
 
     resumed_from, start_step = None, 0
     if args.ckpt_dir:
         params, opt_state, qstate, err, resumed_from = _restore(
             args, params, opt_state, qstate, err)
         start_step = resumed_from or 0
+        if on_mesh and resumed_from is not None:
+            params = sharding.place(params, p_specs, mesh)
+            opt_state = sharding.place(opt_state, o_specs, mesh)
 
-    sync_mesh = None
-    if args.compressed_grads:
-        from repro_torch.launch import mesh as mesh_mod
-        sync_mesh = mesh_mod.make_host_mesh(args.data, args.model)
+    sync_mesh = mesh if args.compressed_grads else None
+    dp = steps.dp_for(shape, mesh)
     train_step = steps.make_train_step(
         cfg, shape, hp, n_micro=1, sync_mesh=sync_mesh,
         sync_per_channel=args.per_channel_scales, sync_bits=args.grad_bits,
@@ -313,6 +375,10 @@ def main(argv=None) -> TrainResult:
     mon = StragglerMonitor()
     losses, step_ms = [], []
     pending = None
+    scope = contextlib.ExitStack()
+    if on_mesh:
+        scope.enter_context(mesh)
+        scope.enter_context(ctx.mesh_context(dp))
     try:
         for step in range(start_step, args.steps):
             if step == args.fail_at_step:
@@ -339,36 +405,39 @@ def main(argv=None) -> TrainResult:
             losses.append(loss)
             step_ms.append(dt * 1e3)
             mon.observe(step, dt)
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} {dt*1e3:.1f}ms",
-                  flush=True)
+            if _rank0():
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"{dt*1e3:.1f}ms", flush=True)
             if not math.isfinite(loss):
                 raise FloatingPointError("loss diverged")
             if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
                 if pending is not None:
                     pending.join()
-                manager.save(args.ckpt_dir, step + 1, params, blocking=True)
+                _save(args.ckpt_dir, step + 1, params, blocking=True)
                 if err is not None:
-                    manager.save(args.ckpt_dir + "/err", step + 1, err,
-                                 blocking=True)
+                    _save(args.ckpt_dir + "/err", step + 1,
+                          spmd.gather_slices(err, params), blocking=True)
                 if qstate is not None:
-                    manager.save(args.ckpt_dir + "/qat", step + 1, qstate,
-                                 blocking=True)
-                pending = manager.save(args.ckpt_dir + "/opt", step + 1,
-                                       opt_state, blocking=False)
+                    _save(args.ckpt_dir + "/qat", step + 1, qstate,
+                          blocking=True)
+                pending = _save(args.ckpt_dir + "/opt", step + 1,
+                                opt_state, blocking=False)
     finally:
         # a failing step leaves the optimizer writer running: let it end,
         # so that what the next run restores does not depend on timing
         if pending is not None:
             pending.join()
+        scope.close()
     ex = None
     if qat_spec is not None:
         from repro_torch import qat as qat_mod
-        ex = qat_mod.export(params, qat_spec, qstate)
+        ex = qat_mod.export(sharding.full(params), qat_spec, qstate)
         print(f"[qat] exported recipe: {ex.recipe}; packed int bytes "
               f"{ex.quantized_bytes[0]} + float {ex.quantized_bytes[1]}")
-    print("training complete.", flush=True)
+    if _rank0():
+        print("training complete.", flush=True)
     return TrainResult(params=params, opt_state=opt_state, qstate=qstate,
                        cfg=cfg, losses=losses, step_ms=step_ms,
                        resumed_from=resumed_from, qat_spec=qat_spec, export=ex,

@@ -43,6 +43,8 @@ import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.dist import ctx
+from repro_torch.dist.sharding import P, stacked
 from repro_torch.models import layers as L
 
 
@@ -132,23 +134,38 @@ def _mask_pad(logits, cfg):
 
 
 def cross_attention_specs(cfg):
-    L._mesh_only("cross_attention_specs")
+    return {"wq": P(L.FSDP, L.TP), "wk": P(L.FSDP, L.TP),
+            "wv": P(L.FSDP, L.TP), "wo": P(L.TP, L.FSDP),
+            "bq": P(L.TP), "bv": P(L.TP), "bo": P(None)}
 
 
 def enc_block_specs(cfg):
-    L._mesh_only("enc_block_specs")
+    return {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg),
+            "attn": L.attention_specs(cfg), "mlp": L.mlp_specs(cfg)}
 
 
 def dec_block_specs(cfg):
-    L._mesh_only("dec_block_specs")
+    return {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg),
+            "ln3": L.norm_specs(cfg),
+            "self_attn": L.attention_specs(cfg),
+            "cross_attn": cross_attention_specs(cfg),
+            "mlp": L.mlp_specs(cfg)}
 
 
 def param_specs(cfg):
-    L._mesh_only("param_specs")
+    return {"embed": P(None, L.FSDP),
+            "enc_blocks": stacked(enc_block_specs(cfg)),
+            "dec_blocks": stacked(dec_block_specs(cfg)),
+            "ln_enc": L.norm_specs(cfg), "ln_dec": L.norm_specs(cfg)}
 
 
 def decode_state_specs(cfg, dp=("data",), tp_size=16):
-    L._mesh_only("decode_state_specs")
+    # cross-KV stays DP-sharded / TP-replicated (the reference's choice:
+    # enc_seq 1500 and 20 heads both resist a 16-way split)
+    per = {"kv": L.kv_cache_specs(cfg, dp, tp_size),
+           "cross": {"k": P(dp, None, None, None),
+                     "v": P(dp, None, None, None)}}
+    return {"layers": stacked(per), "index": P()}
 
 
 # ---------------------------------------------------------------------------
@@ -226,22 +243,33 @@ def _head(params, x, cfg):
 def encode(params, frames, cfg):
     """frames [B,Senc,D] (the stub frontend's output) -> memory
     [B,Senc,D]."""
+    _no_seq_axis()
     x = frames.to(L._dtype(cfg))
     x = x + sinusoid(torch.arange(x.shape[1], device=x.device),
                      cfg.d_model).to(x.dtype)
     for bp in _layers(params["enc_blocks"]):
-        x = L.remat(cfg, lambda h, bp=bp: apply_enc_block(bp, h, cfg), x, bp)
+        x = L.remat(cfg, lambda h, bp=bp: ctx.shard_activations(
+            apply_enc_block(bp, ctx.shard_activations(h), cfg)), x, bp)
     return L.apply_norm(params["ln_enc"], x, cfg)
 
 
 def decode_train(params, memory, tokens, cfg):
     """Teacher-forced decoder pass -> logits [B,S,V]."""
+    _no_seq_axis()
     x, pos = _embed(params, tokens, cfg)
     for bp in _layers(params["dec_blocks"]):
-        x = L.remat(cfg, lambda h, bp=bp: apply_dec_block(
-            bp, h, cfg, positions=pos, memory=memory)[0], x, bp)
+        x = L.remat(cfg, lambda h, bp=bp: ctx.shard_activations(
+            apply_dec_block(bp, ctx.shard_activations(h), cfg, positions=pos,
+                            memory=memory)[0]), x, bp)
     x = L.apply_norm(params["ln_dec"], x, cfg)
-    return _head(params, x, cfg)
+    return ctx.shard_logits(_head(params, x, cfg))
+
+
+def _no_seq_axis():
+    if ctx._seq_sharded():
+        raise NotImplementedError(
+            "Megatron-SP (seq_axis) runs the pre-norm dense and moe blocks "
+            "(the archs of launch.steps.SEQ_SHARD), not the encoder-decoder")
 
 
 def loss_fn(params, batch, cfg):

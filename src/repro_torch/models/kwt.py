@@ -20,6 +20,7 @@ from repro_torch.core import quant
 from repro_torch.core.rowwise import rowwise_matmul
 from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import P
 from repro_torch.models import layers as L
 from repro_torch.telemetry import taps as _health
 
@@ -53,6 +54,17 @@ def init_params(cfg, generator: torch.Generator, device=None):
             for _ in range(cfg.n_layers)],
         "head_w": L.he(generator, (d, cfg.n_classes), 1.0, dt, device),
         "head_b": zeros(cfg.n_classes),
+    }
+
+
+def param_specs(cfg):
+    return {
+        "proj_w": P(None, None), "proj_b": P(None), "cls": P(None),
+        "pos": P(None, None),
+        "blocks": [{"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg),
+                    "attn": L.attention_specs(cfg),
+                    "mlp": L.mlp_specs(cfg)} for _ in range(cfg.n_layers)],
+        "head_w": P(None, None), "head_b": P(None),
     }
 
 

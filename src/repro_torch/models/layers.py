@@ -2,7 +2,9 @@
 (gated) MLP — for KWT and the decoder-only LMs.
 
 Functional style: ``*_params(cfg, generator)`` builds a dict of weights,
-``apply_*`` runs the math on ``[B, T, d]`` tensors.  The paper's technique
+``*_specs(cfg)`` the same-structured dict of partition specs
+(``dist.sharding.P``: FSDP over 'data' x TP over 'model', the
+reference's), ``apply_*`` runs the math on ``[B, T, d]`` tensors.  The paper's technique
 enters through ``cfg.softmax_mode`` / ``cfg.act_approx`` (LUT
 approximations, ``"cuda"`` = the hand-written kernels) and through
 QTensor weights (int8 / nibble-packed int4).
@@ -44,6 +46,7 @@ import torch
 from repro_torch.core import approx
 from repro_torch.core import quant
 from repro_torch.core.tree import tree_leaves
+from repro_torch.dist.sharding import P
 from repro_torch.telemetry import taps as _health
 
 def executes_int(w, eq: str, cfg) -> bool:
@@ -97,7 +100,17 @@ def remat(cfg, fn, x, weights):
                    for w in tree_leaves(weights))):
         return fn(x)
     from torch.utils.checkpoint import checkpoint
-    return checkpoint(fn, x, use_reentrant=False)
+
+    from repro_torch.dist import ctx
+
+    # the recompute runs in backward, on autograd's device thread on the
+    # card: it takes this thread's mesh declarations along
+    snap = ctx.snapshot()
+
+    def run(h):
+        with ctx.resumed(snap):
+            return fn(h)
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def keep_dtype(y, x):
@@ -130,9 +143,23 @@ def _dtype(cfg):
     return getattr(torch, cfg.dtype)
 
 
-def _mesh_only(what: str):
-    raise NotImplementedError(
-        f"{what} shards over a mesh: it waits for ROADMAP queue A item 4")
+# Mesh axis conventions (launch/mesh.py):
+FSDP = "data"     # parameter shard axis (ZeRO-3 style)
+TP = "model"      # tensor-parallel axis
+
+
+def fsdp_axis(cfg):
+    """Weight shard axis/axes: ``pure_fsdp`` shards over the whole mesh
+    (no TP), ``tp_only`` keeps weights TP-resident (no FSDP)."""
+    if cfg.pure_fsdp:
+        return ("data", "model")
+    if cfg.tp_only:
+        return None
+    return FSDP
+
+
+def tp_axis(cfg):
+    return None if cfg.pure_fsdp else TP
 
 
 def he(generator, shape, scale, dtype, device="cpu"):
@@ -159,6 +186,12 @@ def norm_params(cfg, d=None, device="cpu"):
         return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
                 "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def norm_specs(cfg):
+    if cfg.norm == "layernorm":
+        return {"scale": P(None), "bias": P(None)}
+    return {"scale": P(None)}
 
 
 def apply_norm(p, x, cfg, eps=1e-6):
@@ -216,6 +249,18 @@ def attention_params(cfg, generator, device="cpu"):
         p["q_norm"] = torch.ones((dh,), dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones((dh,), dtype=torch.float32, device=device)
     return p
+
+
+def attention_specs(cfg):
+    f, t = fsdp_axis(cfg), tp_axis(cfg)
+    s = {"wq": P(f, t), "wk": P(f, t), "wv": P(f, t), "wo": P(t, f)}
+    if cfg.qkv_bias or cfg.bias:
+        s.update({"bq": P(t), "bk": P(t), "bv": P(t)})
+    if cfg.bias:
+        s["bo"] = P(None)
+    if cfg.qk_norm:
+        s.update({"q_norm": P(None), "k_norm": P(None)})
+    return s
 
 
 def _rms(x, scale, eps=1e-6):
@@ -511,6 +556,20 @@ def _q8_vec_decode(q, scale, dt):
 # MLP (paper eq 6: FFN(x) = act(xW1 + b1)W2 + b2; gated for SiLU-family)
 # ---------------------------------------------------------------------------
 
+def kv_cache_specs(cfg, dp=("data",), tp_size=16):
+    """Batch over DP; KV heads over TP when they divide by the TP size,
+    otherwise the cache's sequence dim over TP."""
+    if cfg.n_kv_heads % tp_size == 0:
+        s = {"k": P(dp, None, TP, None), "v": P(dp, None, TP, None)}
+        if _kv_quantized(cfg):
+            s.update({"ks": P(dp, None, TP), "vs": P(dp, None, TP)})
+        return s
+    s = {"k": P(dp, TP, None, None), "v": P(dp, TP, None, None)}
+    if _kv_quantized(cfg):
+        s.update({"ks": P(dp, TP, None), "vs": P(dp, TP, None)})
+    return s
+
+
 def mlp_params(cfg, generator, d_ff=None, device="cpu"):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = _dtype(cfg)
@@ -524,6 +583,16 @@ def mlp_params(cfg, generator, d_ff=None, device="cpu"):
         p["b1"] = torch.zeros((f,), dtype=dt, device=device)
         p["b2"] = torch.zeros((d,), dtype=dt, device=device)
     return p
+
+
+def mlp_specs(cfg):
+    f, t = fsdp_axis(cfg), tp_axis(cfg)
+    if cfg.gated_mlp:
+        return {"w_gate": P(f, t), "w_up": P(f, t), "w_down": P(t, f)}
+    s = {"w1": P(f, t), "w2": P(t, f)}
+    if cfg.bias:
+        s.update({"b1": P(t), "b2": P(None)})
+    return s
 
 
 def apply_mlp(p, x, cfg):

@@ -27,8 +27,21 @@ to.  Dtypes follow ``jnp``'s promotion: under an integer plan the blocks
 are a float32 view, so bf16 activations meet float32 expert weights and
 the products run in float32, as ``jnp.einsum`` runs them.
 
-The expert-parallel ``shard_map`` branch and ``moe_specs`` wait for
-ROADMAP queue A item 4.
+On a device mesh (``ctx._mesh_active()``) the block runs the
+reference's expert-parallel ``shard_map`` branch in local view: every
+(data, model) rank routes its own data shard of the tokens and runs the
+expert slice ``[m * e_n, (m + 1) * e_n)`` of its model rank ``m`` with
+the group-limited capacity ``_capacity(T // dp_total)``; the slices'
+outputs are summed over ``"model"``.  An expert stack placed as a
+``DTensor`` (``moe_specs``: experts over ``"model"``, ``d_model`` over
+``"data"``) is gathered over ``"data"`` by :func:`gather_experts` — the
+reference's three ``all_gather`` s, ``w_gate`` / ``w_up`` on dim 1 and
+``w_down`` on dim 2 — which ``dist.spmd`` calls when it hands a step's
+forward its weights; the branch takes a stack either whole (and slices
+it) or as the rank's slice.  The router and the tokens enter
+the region replicated over ``"model"``, so their gradients are summed
+there.  Sharded and local runs agree where routing drops nothing (C8):
+the capacities differ.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import torch
 
 from repro_torch.core import approx
 from repro_torch.dist import ctx
+from repro_torch.dist.sharding import P
 from repro_torch.models import layers as L
 
 EP_PAD = 16   # expert count padded to a multiple of the reference's EP axis
@@ -66,6 +80,20 @@ def moe_params(cfg, generator, device="cpu"):
                                    d_ff=cfg.n_shared_experts * Fe,
                                    device=device)
     return p
+
+
+def moe_specs(cfg):
+    s = {
+        "router": P(None, None),
+        # EP over 'model' x FSDP over 'data' on the d_model dim; the
+        # expert-parallel branch gathers its expert slice over 'data'
+        "w_gate": P(L.TP, L.FSDP, None),
+        "w_up": P(L.TP, L.FSDP, None),
+        "w_down": P(L.TP, None, L.FSDP),
+    }
+    if cfg.n_shared_experts:
+        s["shared"] = L.mlp_specs(cfg)
+    return s
 
 
 def _capacity(T: int, cfg) -> int:
@@ -140,19 +168,65 @@ def _dispatch_ffn_combine(xt, gates, idx, wg, wu, wd, cfg, *, e_lo, e_n, C):
             * gates.reshape(T, k, 1).to(xt.dtype)).sum(dim=1)
 
 
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+
+
+def expert_placements(w) -> tuple:
+    """The placements of an expert stack's slice on ``w``'s mesh: ``w``'s
+    ``"model"`` shard kept, every other mesh dim replicated."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist import sharding
+    names = sharding.axis_names(w.device_mesh)
+    return tuple(pl if names[i] == L.TP else Replicate()
+                 for i, pl in enumerate(w.placements))
+
+
+def gather_experts(w):
+    """An expert stack (``DTensor`` placed by ``moe_specs``, a leading
+    layer dim allowed) gathered over every mesh axis but ``"model"``:
+    this rank's expert slice with the whole ``d_model``."""
+    return w.redistribute(w.device_mesh, expert_placements(w)).to_local()
+
+
+def _apply_moe_ep(p, xt, cfg):
+    """The expert-parallel branch over the entered mesh, in local view:
+    ``xt`` is this rank's data shard of the tokens (the group-limited
+    capacity is its own)."""
+    from repro_torch.dist import sharding
+    mesh = ctx.current_mesh()
+    names = sharding.axis_names(mesh)
+    tp = sharding.axis_size(mesh, L.TP)
+    m = mesh.get_local_rank(L.TP)
+    e_n = padded_experts(cfg) // tp
+    C = _capacity(xt.shape[0], cfg)
+    wg, wu, wd = (p[k] if p[k].shape[0] == e_n
+                  else p[k][m * e_n:(m + 1) * e_n] for k in EXPERT_STACKS)
+    router = p["router"]
+    if tp > 1:
+        group = mesh.get_group(names.index(L.TP))
+        xt = ctx.region_enter(xt, group)
+        router = ctx.region_enter(router, group)
+    gates, idx = _route(xt, router, cfg)
+    out = _dispatch_ffn_combine(xt, gates, idx, wg, wu, wd, cfg,
+                                e_lo=m * e_n, e_n=e_n, C=C)
+    if tp > 1:
+        out = ctx.region_exit(out, group)
+    return out
+
+
 def apply_moe(p, x, cfg):
     """x [B, S, D] -> [B, S, D]: routed experts (+ the shared ones)."""
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
     if ctx._mesh_active():
-        raise NotImplementedError(
-            "expert-parallel MoE dispatch on a device mesh is not ported "
-            "yet: it waits for ROADMAP queue A item 4")
-    gates, idx = _route(xt, p["router"], cfg)
-    out = _dispatch_ffn_combine(
-        xt, gates, idx, p["w_gate"], p["w_up"], p["w_down"], cfg,
-        e_lo=0, e_n=padded_experts(cfg), C=_capacity(T, cfg))
+        out = _apply_moe_ep(p, xt, cfg)
+    else:
+        gates, idx = _route(xt, p["router"], cfg)
+        out = _dispatch_ffn_combine(
+            xt, gates, idx, p["w_gate"], p["w_up"], p["w_down"], cfg,
+            e_lo=0, e_n=padded_experts(cfg), C=_capacity(T, cfg))
     if cfg.n_shared_experts:
         out = out + L.apply_mlp(p["shared"], x, cfg).reshape(T, D)
     return out.reshape(B, S, D).to(x.dtype)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import approx
+from repro_torch.dist.sharding import P
 from repro_torch.models import layers as L
 
 CHUNK = 16
@@ -97,7 +98,15 @@ def time_mix_params(cfg, generator, device="cpu"):
 
 
 def time_mix_specs(cfg):
-    L._mesh_only("time_mix_specs")
+    tp = L.TP                                      # proj out dims always TP
+    hspec = L.TP if cfg.rwkv_head_pad else None    # padded heads over TP
+    proj = ({"wrkvg": P(L.FSDP, tp)} if cfg.rwkv_fused_proj else
+            {"wr": P(L.FSDP, tp), "wk": P(L.FSDP, tp),
+             "wv": P(L.FSDP, tp), "wg": P(L.FSDP, tp)})
+    return {"mu": P(None, None), **proj,
+            "wo": P(tp, L.FSDP),
+            "w0": P(tp), "wA": P(None, None), "wB": P(None, tp),
+            "u": P(hspec, None), "ln_x": P(tp)}
 
 
 def channel_mix_params(cfg, generator, device="cpu"):
@@ -110,7 +119,9 @@ def channel_mix_params(cfg, generator, device="cpu"):
 
 
 def channel_mix_specs(cfg):
-    L._mesh_only("channel_mix_specs")
+    f, t = L.fsdp_axis(cfg), L.tp_axis(cfg)
+    return {"mu": P(None, None), "wk": P(f, t),
+            "wv": P(t, f), "wr": P(f, t)}
 
 
 def _token_shift(x, x_prev):
@@ -251,7 +262,8 @@ def block_params(cfg, generator, device="cpu"):
 
 
 def block_specs(cfg):
-    L._mesh_only("block_specs")
+    return {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg),
+            "tmix": time_mix_specs(cfg), "cmix": channel_mix_specs(cfg)}
 
 
 def apply_block(bp, x, cfg, state):
@@ -277,4 +289,8 @@ def init_layer_state(cfg, batch, device="cpu"):
 
 
 def state_specs(cfg, dp=("data",)):
-    L._mesh_only("state_specs")
+    hspec = L.TP if cfg.rwkv_head_pad else None
+    return {
+        "tmix": {"S": P(dp, hspec, None, None), "x_prev": P(dp, None, None)},
+        "cmix": {"x_prev": P(dp, None, None)},
+    }

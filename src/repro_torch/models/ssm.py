@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import approx
+from repro_torch.dist.sharding import P
 from repro_torch.models import layers as L
 
 CHUNK = 16
@@ -60,7 +61,11 @@ def mamba_params(cfg, generator, device="cpu"):
 
 
 def mamba_specs(cfg):
-    L._mesh_only("mamba_specs")
+    return {"in_proj": P(L.FSDP, L.TP), "conv_w": P(None, L.TP),
+            "conv_b": P(L.TP), "x_proj": P(L.TP, None),
+            "dt_proj": P(None, L.TP), "dt_bias": P(L.TP),
+            "A_log": P(L.TP, None), "D": P(L.TP),
+            "out_proj": P(L.TP, L.FSDP)}
 
 
 def mamba_chunk_body(h, chunk, A=None):
@@ -162,8 +167,7 @@ def init_mamba_state(cfg, batch, device="cpu", dtype=None):
 
 
 def mamba_state_specs(cfg, dp=("data",)):
-    raise NotImplementedError("mamba_state_specs shards over a mesh: it "
-                              "waits for ROADMAP queue A item 4")
+    return {"h": P(dp, L.TP, None), "conv": P(dp, None, L.TP)}
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +187,10 @@ def block_params(cfg, generator, device="cpu"):
 
 
 def block_specs(cfg):
-    L._mesh_only("block_specs")
+    return {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg),
+            "attn": L.attention_specs(cfg), "mamba": mamba_specs(cfg),
+            "out_norm_a": P(None), "out_norm_m": P(None),
+            "mlp": L.mlp_specs(cfg)}
 
 
 def _rmsn(x, scale):

@@ -43,6 +43,8 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.dist import ctx
+from repro_torch.dist.sharding import P, stacked
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
@@ -80,6 +82,21 @@ def block_params(cfg, generator, device="cpu"):
     return p
 
 
+def block_specs(cfg):
+    _lm_family(cfg)
+    if cfg.family == "rwkv":
+        return R.block_specs(cfg)
+    if cfg.family == "hybrid":
+        return S.block_specs(cfg)
+    s = {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg),
+         "attn": L.attention_specs(cfg)}
+    if cfg.family == "moe":
+        s["moe"] = M.moe_specs(cfg)
+    else:
+        s["mlp"] = L.mlp_specs(cfg)
+    return s
+
+
 def init_params(cfg, generator: torch.Generator, device=None):
     """Random parameters in the reference's tree layout: ``embed``
     ``[padded_vocab, d]``, ``blocks`` stacked ``[n_layers, ...]``,
@@ -100,6 +117,18 @@ def init_params(cfg, generator: torch.Generator, device=None):
         p["lm_head"] = L.he(generator, (cfg.d_model, cfg.padded_vocab), 1.0,
                             dt, device)
     return p
+
+
+def param_specs(cfg):
+    s = {
+        # embed sharded on d_model (a clean gather); the head vocab-parallel
+        "embed": P(None, L.FSDP),
+        "blocks": stacked(block_specs(cfg)),
+        "ln_f": L.norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = P(L.FSDP, L.TP)
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -123,12 +152,18 @@ def apply_block(bp, x, cfg, state, *, positions, cache_index=None,
                                   kv_len_valid=kv_len_valid)
         x = L.apply_norm(bp["ln1"], x + a, cfg)
         return L.apply_norm(bp["ln2"], x + _ffn(bp, x, cfg), cfg), nc
-    a, nc = L.apply_attention(bp["attn"], L.apply_norm(bp["ln1"], x, cfg), cfg,
-                              positions=positions, cache=state,
-                              cache_index=cache_index,
+    # under Megatron-SP x is this rank's sequence chunk (the residual
+    # stream between blocks); each sub-layer runs on the gathered
+    # sequence, its norm included (so that no weight sees a chunk and
+    # every rank's weight gradient is whole), and its residual takes the
+    # chunk back (what GSPMD inserts there)
+    h = L.apply_norm(bp["ln1"], ctx.unshard_seq(x), cfg)
+    a, nc = L.apply_attention(bp["attn"], h, cfg, positions=positions,
+                              cache=state, cache_index=cache_index,
                               kv_len_valid=kv_len_valid)
-    x = x + a
-    return x + _ffn(bp, L.apply_norm(bp["ln2"], x, cfg), cfg), nc
+    x = x + ctx.shard_activations(a)
+    h = L.apply_norm(bp["ln2"], ctx.unshard_seq(x), cfg)
+    return x + ctx.shard_activations(_ffn(bp, h, cfg)), nc
 
 
 def _ffn(bp, h, cfg):
@@ -177,6 +212,11 @@ def _scan_blocks(params, x, cfg, *, positions, states=None, cache_index=None,
     place (layer i's new recurrence into ``states[...][i]``).  Without
     ``states`` a recurrent family starts every layer from zeros."""
     recurrent = cfg.family in RECURRENT_FAMILIES
+    if ctx._seq_sharded() and (
+            recurrent or cfg.post_norm):
+        raise NotImplementedError(
+            "Megatron-SP (seq_axis) runs the pre-norm dense and moe blocks "
+            "(the archs of launch.steps.SEQ_SHARD)")
     fresh = _fresh_state(cfg, x.shape[0], x.device) \
         if states is None and recurrent else None
     for i in range(cfg.n_layers):
@@ -184,15 +224,17 @@ def _scan_blocks(params, x, cfg, *, positions, states=None, cache_index=None,
         if states is None:
             # stateless (forward, training): a dropped state, so a layer
             # may be checkpointed (the reference's remat)
-            x = L.remat(cfg, lambda h, bp=bp: apply_block(
-                bp, h, cfg, fresh, positions=positions,
-                cache_index=cache_index, kv_len_valid=kv_len_valid,
-                ring=ring)[0], x, bp)
+            x = L.remat(cfg, lambda h, bp=bp: ctx.shard_activations(
+                apply_block(bp, ctx.shard_activations(h), cfg, fresh,
+                            positions=positions, cache_index=cache_index,
+                            kv_len_valid=kv_len_valid, ring=ring)[0]),
+                x, bp)
             continue
         st = tree_map(lambda a, i=i: a[i], states)
-        x, new = apply_block(bp, x, cfg, st, positions=positions,
-                             cache_index=cache_index,
+        x, new = apply_block(bp, ctx.shard_activations(x), cfg, st,
+                             positions=positions, cache_index=cache_index,
                              kv_len_valid=kv_len_valid, ring=ring)
+        x = ctx.shard_activations(x)
         if recurrent:
             _write_state(st, new)
     return x, states
@@ -217,7 +259,8 @@ def _head(params, x, cfg):
 
 
 def _embed(params, tokens, cfg):
-    return L.embed_rows(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    return ctx.embed_lookup(L.embed_rows(params["embed"], tokens)).to(
+        getattr(torch, cfg.dtype))
 
 
 def forward(params, tokens, cfg, *, positions=None):
@@ -225,12 +268,13 @@ def forward(params, tokens, cfg, *, positions=None):
     recurrent family starts from a zero state)."""
     _lm_family(cfg)
     s = tokens.shape[1]
-    x = _embed(params, tokens, cfg)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    x, _ = _scan_blocks(params, x, cfg, positions=positions)
-    x = L.apply_norm(params["ln_f"], x, cfg)
-    return _head(params, x, cfg)
+    with ctx.sequence(s):
+        x = ctx.shard_activations(_embed(params, tokens, cfg))
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        x, _ = _scan_blocks(params, x, cfg, positions=positions)
+        x = L.apply_norm(params["ln_f"], ctx.unshard_seq(x), cfg)
+        return ctx.shard_logits(_head(params, x, cfg))
 
 
 def loss_fn(params, batch, cfg):
@@ -295,6 +339,18 @@ def init_decode_state(cfg, batch, max_len, device=None, dtype=None):
     return {"layers": layers, "index": 0}
 
 
+def decode_state_specs(cfg, dp=("data",), tp_size=16):
+    _lm_family(cfg)
+    if cfg.family == "rwkv":
+        per = R.state_specs(cfg, dp)
+    elif cfg.family == "hybrid":
+        per = {"mamba": S.mamba_state_specs(cfg, dp),
+               "kv": L.kv_cache_specs(cfg, dp, tp_size)}
+    else:
+        per = L.kv_cache_specs(cfg, dp, tp_size)
+    return {"layers": stacked(per), "index": P()}
+
+
 def _index(idx):
     """An int, or a per-lane [B] tensor (a 0-dim tensor becomes an int)."""
     if isinstance(idx, torch.Tensor) and idx.ndim == 0:
@@ -333,9 +389,11 @@ def prefill(params, tokens, cfg, state):
             positions = idx[:, None] + steps
         else:
             positions = idx + steps
-        x, layers = _scan_blocks(params, x, cfg, positions=positions,
-                                 states=state["layers"], cache_index=idx,
-                                 kv_len_valid=idx + s)
+        with ctx.sequence(s):
+            x, layers = _scan_blocks(params, x, cfg, positions=positions,
+                                     states=state["layers"], cache_index=idx,
+                                     kv_len_valid=idx + s)
+            x = ctx.unshard_seq(x)
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = _head(params, x[:, -1], cfg)
     return logits, {"layers": layers, "index": idx + s}

@@ -53,8 +53,8 @@ def schedule(step: torch.Tensor, hp: HParams) -> torch.Tensor:
 
 # --- int8 moment codec (dynamic power-of-2 scale, eq 9) --------------------
 
-def _q8_encode(x: torch.Tensor) -> dict:
-    maxabs = x.abs().max()
+def _q8_encode(x: torch.Tensor, reduce=None) -> dict:
+    maxabs = x.abs().max() if reduce is None else reduce.maxabs(x)
     # scale = 2^e with 127 * 2^e >= maxabs  (power-of-2, paper eq 9)
     e = torch.ceil(torch.log2(maxabs.clamp(min=1e-30) / 127.0))
     scale = torch.exp2(e)
@@ -92,6 +92,21 @@ def init(params, hp: HParams) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
+def opt_state_specs(param_specs, hp: HParams):
+    """Moment specs mirror the parameter specs (ZeRO-ish); an int8
+    moment's scale is replicated."""
+    from repro_torch.dist.sharding import P
+
+    def like(spec, stacked):
+        if hp.int8_moments:
+            return {"q": spec, "scale": P(None) if stacked else P()}
+        return spec
+
+    moments = {key: tree_map(lambda sp, s=(key in STACKED_KEYS): like(sp, s),
+                             sub) for key, sub in param_specs.items()}
+    return {"m": moments, "v": moments, "step": P()}
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                           for g in tree_leaves(tree)))
@@ -114,7 +129,8 @@ def _unflatten_like(like, leaves):
     return tree_map(lambda _: next(it), like)
 
 
-def _update_subtree(g_t, m_t, v_t, p_t, *, lr, clip, bc1, bc2, hp):
+def _update_subtree(g_t, m_t, v_t, p_t, *, lr, clip, bc1, bc2, hp,
+                    reduce=None):
     """Element-wise AdamW over one same-structure subtree.  ``bc1`` /
     ``bc2`` are the bias corrections ``1 - b^step``."""
     def leaf(g, m_enc, v_enc, p):
@@ -130,7 +146,7 @@ def _update_subtree(g_t, m_t, v_t, p_t, *, lr, clip, bc1, bc2, hp):
             upd = upd + hp.weight_decay * p.to(torch.float32)
         new_p = (p.to(torch.float32) - lr * upd).to(p.dtype)
         if hp.int8_moments:
-            return new_p, _q8_encode(m), _q8_encode(v)
+            return new_p, _q8_encode(m, reduce), _q8_encode(v, reduce)
         return new_p, m, v
 
     out = [leaf(g, m, v, p) for g, m, v, p in
@@ -153,20 +169,32 @@ def _update_stacked(g_t, m_t, v_t, p_t, **kw):
 
 
 @torch.no_grad()
-def update(grads, state, params, hp: HParams, *, scan_stacked: bool = True):
+def update(grads, state, params, hp: HParams, *, scan_stacked: bool = True,
+           reduce=None):
     """One AdamW step: ``(new_params, new_state, {"lr", "grad_norm"})``.
 
     Stacked-layer subtrees (params["blocks"] etc. with a leading
     n_layers axis) are updated one layer slice at a time when
-    ``scan_stacked`` (the reference's scan)."""
+    ``scan_stacked`` (the reference's scan).
+
+    ``params`` and ``state`` placed on a ``DeviceMesh`` (``DTensor``
+    leaves) are updated shard by shard on each rank
+    (``dist.spmd.update_on_mesh``: ``grads`` are cut to the parameters'
+    shards, ``reduce`` takes the global norm and the int8 moments'
+    max-abs across the mesh)."""
+    from repro_torch.dist import spmd
+    if spmd.mesh_of(params) is not None:
+        return spmd.update_on_mesh(update, grads, state, params, hp,
+                                   scan_stacked=scan_stacked)
     step = state["step"] + 1
     lr = schedule(step, hp)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if reduce is None else \
+        reduce.norm(tree_leaves(grads))
     floor = gnorm.clamp(min=1e-9)
     clip = torch.clamp(torch.full_like(floor, hp.grad_clip) / floor, max=1.0)
     step_f = step.to(torch.float32)
     kw = dict(lr=lr, clip=clip, bc1=1 - torch.pow(hp.b1, step_f),
-              bc2=1 - torch.pow(hp.b2, step_f), hp=hp)
+              bc2=1 - torch.pow(hp.b2, step_f), hp=hp, reduce=reduce)
 
     new_p, new_m, new_v = {}, {}, {}
     if not isinstance(params, dict):

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.dist import spmd
 from repro_torch.optim import adamw
 from repro_torch.qat import fakequant
 from repro_torch.runtime import backends
@@ -205,6 +206,7 @@ def make_qat_train_step(cfg, shape, hp=None, n_micro=None, *, qat: QATSpec,
     loss_at = make_qat_loss(cfg, qat)
     steps.no_tf32()
 
+    @spmd.grads_on_mesh
     def grads_of(params, qstate, batch):
         device = tree_leaves(params)[0].device
         qat.check_device(device)

@@ -13,9 +13,9 @@ directly), so PTQ and mode selection happen once at plan time.
 
 State is one dict of tensors (frontend tail + feature ring + embedding
 ring): ``stream_step`` is pure ``(params, state, chunk) -> (state,
-logits)``.  Sharding the packed multi-stream batch over a mesh
-(``dist.ctx.shard_activations`` in the reference, an exact no-op off a
-mesh) belongs to the port's ``dist`` slice and is left out here.
+logits)``.  The assembled window passes ``dist.ctx.shard_activations``
+as in the reference (the packed multi-stream batch over the DP axes on
+a mesh; a no-op off one).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import ctx
 from repro_torch.models import kwt
 from repro_torch.stream import features
 from repro_torch.stream import ring
@@ -64,7 +65,8 @@ def _advance(params, state: dict, fe: dict, frames: torch.Tensor,
     # fuse the hop-sized producers into the encoder and make its rounding
     # depend on the chunk size.  Eager PyTorch fuses nothing across calls:
     # the encoder sees the assembled [B, T, d] window as offline does.
-    logits = kwt.encode_window(params, ring.ring_window(emb), cfg)
+    window = ctx.shard_activations(ring.ring_window(emb))
+    logits = kwt.encode_window(params, window, cfg)
     return new, logits
 
 

@@ -152,7 +152,9 @@ def test_sync_keeps_dtypes_and_refuses_a_wider_mesh():
     assert tcompress.reduce_axis(tmesh.HostMesh()) == "data"
     assert tcompress.reduce_axis(
         tmesh.HostMesh(shape=(1, 1), axis_names=("pod", "data"))) == "pod"
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    # a HostMesh is one device: a ring of two over one is refused (a
+    # DeviceMesh's data axis rings, tests/test_torch_mesh.py)
+    with pytest.raises(ValueError, match="HostMesh is one device"):
         tcompress.compressed_grad_sync(
             g, tcompress.init_error_state(g), tmesh.HostMesh(shape=(2, 1)))
     with pytest.raises(ValueError, match="error state"):
@@ -179,7 +181,7 @@ _WORKER = textwrap.dedent("""
     grads = {k: torch.from_numpy(data["g_" + k]) for k in ("w", "b")}
     err = {k: torch.from_numpy(data["e_" + k]) for k in ("w", "b")}
     synced, new_err = compress.compressed_grad_sync(
-        grads, err, mesh_mod.make_host_mesh(), per_channel=per_channel == "1",
+        grads, err, mesh_mod.HostMesh(), per_channel=per_channel == "1",
         bits=bits, group=dist.group.WORLD)
     np.savez(out + f"/out_{rank}.npz",
              **{"s_" + k: synced[k].numpy() for k in synced},

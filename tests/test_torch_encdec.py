@@ -587,10 +587,13 @@ def test_steps_model_module_and_specs():
     from repro.launch import steps as jsteps
     assert jsteps.model_module(jcfg) is JE
     assert tsteps.model_module(tcfg) is TE
-    for fn in (TE.param_specs, TE.enc_block_specs, TE.dec_block_specs,
-               TE.cross_attention_specs, TE.decode_state_specs):
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            fn(tcfg)
+    from jax.sharding import PartitionSpec as JP
+    for name in ("param_specs", "enc_block_specs", "dec_block_specs",
+                 "cross_attention_specs", "decode_state_specs"):
+        want = jax.tree.leaves(getattr(JE, name)(jcfg),
+                               is_leaf=lambda x: isinstance(x, JP))
+        got = tree_leaves_sorted(getattr(TE, name)(tcfg))
+        assert [tuple(s) for s in want] == [tuple(s) for s in got], name
 
 
 def test_serve_refuses_encdec():

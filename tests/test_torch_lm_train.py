@@ -430,20 +430,34 @@ def test_prefill_and_decode_steps_vs_reference(name):
 
 
 def test_mesh_pieces_raise_and_name_item_4():
+    """The specs and the step program run (held leaf for leaf against the
+    reference's in tests/test_torch_specs.py); lowering and pricing a
+    program still raise, naming item 4.4."""
+    from jax.sharding import PartitionSpec as JP
+
+    from repro_torch.launch import mesh as tmesh
+    jcfg = jregistry.get("internlm2-1.8b").config
     tcfg = tregistry.get("internlm2-1.8b").config
     shape = ShapeSpec("train_4k", 4096, 256, "train")
-    for fn, args in ((tsteps.seq_axis_for, (tcfg, shape)),
-                     (tsteps.batch_pspec, (tcfg, shape, ("data",))),
-                     (tsteps.dp_for, (shape, object())),
-                     (tsteps.param_pspecs, (tcfg,)),
-                     (tsteps.decode_state_pspecs, (tcfg, ("data",))),
-                     (tsteps.build_step_program, (tcfg, shape, object())),
-                     (tsteps.lower_program, (object(), object())),
-                     (tsteps.cost_programs, (tcfg, shape, object())),
-                     (tsteps.microbatches, (tcfg, shape, object()))):
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
+    host = tmesh.HostMesh()
+    assert tsteps.seq_axis_for(tcfg, shape) is None
+    assert tsteps.dp_for(shape, host) == ("data",)
+    assert tsteps.microbatches(tcfg, shape, host) == 2 == \
+        tsteps.microbatches(tcfg, shape)
+    for got, want in ((tsteps.batch_pspec(tcfg, shape, ("data",)),
+                       jsteps.batch_pspec(jcfg, shape, ("data",))),
+                      (tsteps.param_pspecs(tcfg), jsteps.param_pspecs(jcfg)),
+                      (tsteps.decode_state_pspecs(tcfg, ("data",)),
+                       jsteps.decode_state_pspecs(jcfg, ("data",)))):
+        flat = jax.tree.leaves(want, is_leaf=lambda x: isinstance(x, JP))
+        assert [tuple(s) for s in flat] == \
+            [tuple(s) for s in tree_leaves_sorted(got)]
+    prog = tsteps.build_step_program(tcfg, shape, host)
+    assert prog.name == "internlm2-1.8b:train_4k:train"
+    for fn, args in ((tsteps.lower_program, (prog, host)),
+                     (tsteps.cost_programs, (tcfg, shape, host))):
+        with pytest.raises(NotImplementedError, match="queue A item 4.4"):
             fn(*args)
-    assert tsteps.microbatches(tcfg, shape) == 2
 
 
 # ---------------------------------------------------------------------------

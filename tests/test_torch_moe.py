@@ -307,13 +307,36 @@ def test_apply_moe_promotes_bf16_against_float32_weights():
                                atol=2 ** -7 * float(np.abs(want).max()))
 
 
-def test_apply_moe_raises_on_a_mesh(monkeypatch):
+def test_apply_moe_raises_on_a_mesh():
+    """The expert-parallel branch runs on a device mesh (it raised before
+    the mesh was ported): on a one-rank gloo mesh — the card's mesh
+    shape — it routes every token through the one model rank's experts
+    and equals the local branch bit for bit (4 ranks:
+    tests/test_torch_mesh.py)."""
+    import socket
+
+    import torch.distributed as dist
+
     from repro_torch.dist import ctx
+    from repro_torch.launch import mesh as tmesh
     _, tcfg, p, xt = _block_inputs("granite-moe-3b-a800m", 0, 8)
+    x = torch.from_numpy(xt)[None]
     assert ctx._mesh_active() is False
-    monkeypatch.setattr(ctx, "_mesh_active", lambda: True)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        TM.apply_moe(_tp(p), torch.from_numpy(xt)[None], tcfg)
+    want = TM.apply_moe(_tp(p), x, tcfg)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_host_mesh(1, 1)
+        with mesh, ctx.mesh_context(tmesh.dp_axes(mesh)):
+            assert ctx._mesh_active() is True
+            got = TM.apply_moe(_tp(p), x, tcfg)
+    finally:
+        dist.destroy_process_group()
+    assert ctx._mesh_active() is False
+    assert torch.equal(got, want)
 
 
 def test_load_balance_loss_matches_reference():
@@ -523,3 +546,29 @@ def test_decode_gap_tool_takes_a_moe_plan_apart(capsys):
     assert all(r["expert_set_agree"] == 1.0 and r["first_route_flip"] is None
                and r["per_lane_equal"] and r["argmax_equal"] for r in rows)
     assert [r["rel"] for r in rows] == [0.0] * 11
+
+
+def test_cuda_vs_lut_gap_is_the_attentions_masked_softmax(capsys):
+    """``tools/lm_decode_gap.py --cuda-vs-lut`` (the granite-moe split run
+    on the card) at smoke size on the CPU: the ``cuda`` and ``lut`` plans'
+    attention outputs part from the first layer (the kernel's masked
+    lanes leak at the clip bin and renormalise in float32; the ``lut``
+    rule drops them in Q8.24), routes then flip, and the logits part; with
+    the ``cuda`` plan's attention outputs forced into the ``lut`` forward
+    the logits are equal bit for bit — at the config's capacity factor
+    (drops included) and the drop-free one.  No other op sets the plans
+    apart."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "lm_decode_gap.py"
+    spec = importlib.util.spec_from_file_location("lm_decode_gap", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                      "--device", "cpu", "--cuda-vs-lut"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["capacity_factor"] for r in rows] == [1.25, 8.0]
+    for r in rows:
+        assert r["attn_rel"][0] > 0 and r["logits_max_abs"] > 0
+        assert min(r["expert_set_agree"]) < 1.0
+        assert r["forced"]["equal"]
+    assert rows[1]["dropped"] == {"cuda": [0, 0], "lut": [0, 0]}

@@ -37,6 +37,7 @@ from repro_torch import convert
 from repro_torch import runtime as trt
 from repro_torch.configs import registry as tregistry
 from repro_torch.core import quant as tquant
+from repro_torch.core.tree import tree_leaves_sorted
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as TR
 from repro_torch.models import transformer as TT
@@ -463,11 +464,22 @@ def test_bf16_integer_plan_runs_where_the_reference_raises(plan):
 
 
 def test_mesh_specs_raise_and_name_their_item():
-    cfg = tregistry.get(NAME).smoke
-    for fn in (TR.time_mix_specs, TR.channel_mix_specs, TR.block_specs,
-               TR.state_specs):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            fn(cfg)
+    """The specs are ported (every config: tests/test_torch_specs.py):
+    here the smoke config, padded heads included, against the
+    reference's trees."""
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.configs import registry as jregistry
+    from repro.models import rwkv as JR
+    for pad in (False, True):
+        jcfg = jregistry.get(NAME).smoke.with_(rwkv_head_pad=pad)
+        tcfg = tregistry.get(NAME).smoke.with_(rwkv_head_pad=pad)
+        for name in ("time_mix_specs", "channel_mix_specs", "block_specs",
+                     "state_specs"):
+            want = jax.tree.leaves(getattr(JR, name)(jcfg),
+                                   is_leaf=lambda x: isinstance(x, JP))
+            got = tree_leaves_sorted(getattr(TR, name)(tcfg))
+            assert [tuple(s) for s in want] == [tuple(s) for s in got]
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])

@@ -283,8 +283,8 @@ def test_microbatches_accumulate_in_float32():
 def test_later_items_raise_and_name_them():
     _, tcfg = _cfgs("kwt-tiny")
     shape = ShapeSpec("t", 26, 8, "train")
-    # the compressed sync is ported (tests/test_torch_compress.py); a
-    # mesh ring of more than one device still waits for item 4
+    # the compressed sync is ported (tests/test_torch_compress.py), and
+    # so is the mesh (tests/test_torch_mesh.py): --data 2 needs its ranks
     from repro_torch.launch import mesh as tmesh
     step = tsteps.make_train_step(tcfg, shape,
                                   sync_mesh=tmesh.HostMesh(shape=(2, 1)))
@@ -292,7 +292,7 @@ def test_later_items_raise_and_name_them():
     assert tsteps.microbatches(tcfg, shape) == 1
     from repro_torch.models import encdec
     assert tsteps.model_module(tcfg.with_(family="encdec")) is encdec
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(ValueError, match="needs 2 ranks.*distributed.run"):
         ttrain.main(["--device", "cpu", "--steps", "1", "--data", "2"])
     res = ttrain.main(["--device", "cpu", "--steps", "1",
                        "--compressed-grads"])

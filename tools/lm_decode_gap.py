@@ -2,7 +2,7 @@
 """Where an LM's prefill + decode_step departs from its forward.
 
     python tools/lm_decode_gap.py [--arch internlm2-1.8b] [--smoke]
-        [--device cpu] [--cpu-twin] [--kv8] [--out FILE]
+        [--device cpu] [--cpu-twin] [--kv8] [--cuda-vs-lut] [--out FILE]
 
 The check of ``chip_smoke.py``'s phases ``lm_internlm2``,
 ``lm_granite_moe``, ``lm_rwkv6`` and ``lm_hymba`` (a prefill of S - 1
@@ -43,6 +43,21 @@ KV cache (``QuantConfig(quantize_kv_cache=True)``): the plans with both
 LUTs off at float32 activations then show the cache's own share of the
 gap, layer by layer (with the float cache they read ~1e-6).  One JSON
 object a plan on standard output (and in ``--out``).  Without ``--device`` it takes the card.
+
+``--cuda-vs-lut`` takes the ``cuda`` plan's forward apart from the
+``lut`` plan's instead (the same tokens and weights, at the config's
+capacity factor and at the drop-free one, each with the model's bf16
+and with float32 activations), layer by layer: ``attn_rel``, the
+attention sub-layer's output (every position) over its magnitude;
+``block_rel``, the block's output; moe only, ``expert_set_agree``, the
+share of tokens routed to the same set of experts, and ``dropped``,
+the slots each plan drops.  Then ``forced``: the ``lut`` forward again
+with each layer's attention output replaced by the ``cuda`` plan's, its
+logits against the ``cuda`` plan's (``logits_max_abs``,
+``argmax_agree``): zero where the two attentions' masked softmax rules
+— the kernel's clip-bin leak renormalised in float32 (``cuda``) against
+masked lanes dropped in Q8.24 (``lut``) — are all that sets the plans
+apart.
 """
 
 from __future__ import annotations
@@ -200,6 +215,97 @@ def variants(cuda_eng, lut_eng, float_eng):
     yield "float", float_eng
 
 
+class AttentionTap:
+    """While installed, each attention sub-layer's output (every
+    position) is kept, in call order; given ``force``, the i-th call
+    returns ``force[i]`` instead of its own output."""
+
+    def __init__(self, force=None):
+        self.outs, self.force = [], force
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._attn = layers.apply_attention
+
+        def attention(*a, **kw):
+            y, nc = self._attn(*a, **kw)
+            if self.force is not None:
+                y = self.force[len(self.outs)].to(y.dtype)
+            self.outs.append(y.detach().clone())
+            return y, nc
+
+        layers.apply_attention = attention
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.apply_attention = self._attn
+
+
+class RouteTap:
+    """While installed, every moe block's expert ids ``[T, k]`` and its
+    dropped slots are kept (the route taken again on the block's input)."""
+
+    def __init__(self):
+        self.idx, self.dropped = [], []
+
+    def __enter__(self):
+        self._moe = moe.apply_moe
+
+        def block(p, x, cfg):
+            xt = x.reshape(-1, x.shape[-1])
+            _, idx = moe._route(xt, p["router"], cfg)
+            _, _, keep = moe._slots(idx, e_lo=0,
+                                    e_n=moe.padded_experts(cfg),
+                                    C=moe._capacity(xt.shape[0], cfg))
+            self.idx.append(idx.cpu())
+            self.dropped.append(int((~keep).sum()))
+            return self._moe(p, x, cfg)
+
+        moe.apply_moe = block
+        return self
+
+    def __exit__(self, *exc):
+        moe.apply_moe = self._moe
+
+
+def _set_agree(a, b) -> float:
+    return float((a.sort(-1).values == b.sort(-1).values).all(-1)
+                 .float().mean())
+
+
+def cuda_vs_lut(cuda_eng, lut_eng, toks) -> dict:
+    """The two plans' forwards of ``toks``, taken apart by layer, and the
+    ``lut`` forward with the ``cuda`` plan's attention outputs forced."""
+    runs = {}
+    for name, eng in (("cuda", cuda_eng), ("lut", lut_eng)):
+        with Recorder() as rec, AttentionTap() as tap, RouteTap() as routes:
+            logits = eng.forward(toks)
+        runs[name] = (logits, rec.blocks, tap.outs, routes)
+    (cl, cb, ca, cr), (ll, lb, la, lr) = runs["cuda"], runs["lut"]
+    v = cuda_eng.exec_cfg.vocab_size
+    out = {"logits_max_abs": float((cl - ll)[..., :v].abs().max()),
+           "argmax_agree": float((cl[..., :v].argmax(-1)
+                                  == ll[..., :v].argmax(-1)).float().mean()),
+           "attn_rel": [_rel(a, b) for a, b in zip(ca, la)],
+           "block_rel": [_rel(a, b) for a, b in zip(cb, lb)]}
+    if cr.idx:
+        out["expert_set_agree"] = [_set_agree(a, b)
+                                   for a, b in zip(cr.idx, lr.idx)]
+        out["dropped"] = {"cuda": cr.dropped, "lut": lr.dropped}
+        out["first_route_flip"] = next(
+            (i for i, s in enumerate(out["expert_set_agree"]) if s < 1.0),
+            None)
+    with AttentionTap(force=ca):
+        forced = lut_eng.forward(toks)
+    out["forced"] = {
+        "logits_max_abs": float((forced - cl)[..., :v].abs().max()),
+        "argmax_agree": float((forced[..., :v].argmax(-1)
+                               == cl[..., :v].argmax(-1)).float().mean()),
+        "equal": bool(torch.equal(forced, cl))}
+    return out
+
+
 def tokens_shape(cfg) -> tuple:
     """``TOKENS``, cut to a hybrid config's window (its smoke window is
     8): a longer prefill leaves the ring cache empty (C10)."""
@@ -216,11 +322,16 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu-twin", action="store_true")
     ap.add_argument("--kv8", action="store_true",
                     help="every plan on the int8 KV cache")
+    ap.add_argument("--cuda-vs-lut", action="store_true",
+                    help="take the cuda plan's forward apart from the lut "
+                         "plan's, layer by layer")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     spec = registry.get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
+    if args.cuda_vs_lut:
+        return split_cuda_lut(cfg, dev, emit_to=args.out)
     if cfg.family == "moe":
         cfg = cfg.with_(capacity_factor=DROP_FREE)
     if args.kv8:
@@ -273,6 +384,42 @@ def main(argv=None) -> int:
                    card_vs_host_decode_rel=_rel(decs[0], decs[1]),
                    seconds=time.perf_counter() - t0)
         emit(row)
+    if out is not None:
+        out.close()
+    return 0
+
+
+def split_cuda_lut(cfg, dev, emit_to=None) -> int:
+    """``--cuda-vs-lut``: one JSON object per (capacity factor, dtype)."""
+    out = open(emit_to, "w") if emit_to else None
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, tokens_shape(cfg)).astype(np.int32)
+    cuda_eng = runtime.compile_model(cfg, params, backend="cuda", device=dev,
+                                     plain_kernels=dev.type == "cpu")
+    lut_eng = runtime.compile_model(cfg, params, backend="lut", device=dev)
+    del params
+    factors = [cfg.capacity_factor]
+    if cfg.family == "moe":
+        factors.append(DROP_FREE)
+    for cf in factors:
+        for dt in dict.fromkeys((cfg.dtype, "float32")):
+            t0 = time.perf_counter()
+            kw = {"dtype": dt, "capacity_factor": cf}
+            row = {"split": "cuda vs lut", "device": str(dev),
+                   "model": cfg.name, "n_layers": cfg.n_layers,
+                   "capacity_factor": cf, "dtype": dt,
+                   **cuda_vs_lut(
+                       dataclasses.replace(cuda_eng, exec_cfg=cuda_eng
+                                           .exec_cfg.with_(**kw)),
+                       dataclasses.replace(lut_eng, exec_cfg=lut_eng
+                                           .exec_cfg.with_(**kw)), toks),
+                   "seconds": time.perf_counter() - t0}
+            line = json.dumps(row)
+            print(line, flush=True)
+            if out is not None:
+                out.write(line + "\n")
     if out is not None:
         out.close()
     return 0
