@@ -415,6 +415,29 @@ quickest proof that the port still builds and starts there:
                        plain and with ``--compressed-grads`` (the ring
                        over the mesh's data axis), ``torch.equal``.  The
                        mesh runs are the ``mesh`` path.
+26. ``dryrun``         the dry run and program pricing (ROADMAP A4.4), on
+                       the host's cores beside the card: (a) ``python -m
+                       repro_torch.launch.dryrun --mesh single --force``
+                       in a subprocess (its fake 512-rank world needs a
+                       process of its own), a worker a core, over the 32
+                       assigned cells lowered on the (16, 16) production
+                       mesh and priced on the H100 model — per cell rank
+                       0's peak GB with and without donation, whether
+                       each fits 80 GB, the three roofline terms and the
+                       dominant one, collective bytes by kind,
+                       model_to_hlo and seconds; (b) ``train_lm``'s
+                       float step (internlm2-1.8b at full width, 8 x 256)
+                       lowered on the one-device mesh
+                       (``steps.lower_program`` on meta tensors) beside
+                       the card's run of it: ATen ops walked against
+                       counted (by name where they differ), the reckoned
+                       peak against ``torch.cuda.max_memory_allocated``,
+                       the roofline time against the measured p50, with
+                       the card's name and power limit.  It fails if the
+                       ops differ, if the peak without donation lies
+                       over 5 % from the card's, if the roofline lies
+                       above the p50, or if the phase takes over its
+                       180 s.  It launches no kernel.
 
    ``lm_dense_smoke`` (14) also runs the rwkv6-3b smoke config (and its
    fused-projection and padded-head variants) and the hymba-1.5b smoke
@@ -477,6 +500,7 @@ are ``repro_torch.perf.cost``'s).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -1611,9 +1635,11 @@ class CountOps(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.names = collections.Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.n += 1
+        self.names[func.overloadpacket.__name__] += 1
         return func(*args, **(kwargs or {}))
 
 
@@ -4154,13 +4180,20 @@ def lm_step_of(result, qat_spec=None):
     return steps.make_train_step(cfg, shape, hp, n_micro=1, qat=qat_spec)
 
 
-def count_step_ops(step, state: tuple, batch) -> int:
+def count_step_ops(step, state: tuple, batch, names=None) -> int:
     """The ATen ops one more step of ``state`` dispatches (forward,
-    backward and AdamW; its output is dropped)."""
+    backward and AdamW; its output is dropped); ``names``, a dict, takes
+    their counts by op name."""
     with CountOps() as counter:
         step(*state, batch)
         torch.cuda.synchronize()
+    if names is not None:
+        names.update(counter.names)
     return counter.n
+
+
+# the float run's step as the card ran it, for the dry run's calibration
+TRAIN_LM_MEASURED: dict = {}
 
 
 def full_width_float(dev) -> dict:
@@ -4176,9 +4209,12 @@ def full_width_float(dev) -> dict:
     if not all(np.isfinite(result.losses)) or len(result.losses) != 8:
         raise AssertionError(f"{cfg.name} float losses {result.losses}")
     p50 = statistics.median(result.step_ms)
+    names = {}
     n_ops = count_step_ops(
         lm_step_of(result), (result.params, result.opt_state),
-        steps.to_device(lm_batch_for(cfg, 0, 8, b, s), dev))
+        steps.to_device(lm_batch_for(cfg, 0, 8, b, s), dev), names)
+    TRAIN_LM_MEASURED.update(p50_ms=p50, peak_bytes=peak, aten_ops=n_ops,
+                             aten_ops_by_name=names)
     n_params = sum(t.numel() for t in tree_leaves(result.params))
     out = {"argv": TRAIN_LM_ARGS, "dtype": cfg.dtype, "remat": cfg.remat,
            "n_params": n_params, "tokens_per_step": b * s,
@@ -5400,6 +5436,176 @@ def kernels_line(rows: dict, launches: dict, expected: dict,
     return {"kernels": entries}
 
 
+# ---------------------------------------------------------------------------
+# the dry run and program pricing (ROADMAP A4.4)
+# ---------------------------------------------------------------------------
+
+DRYRUN_BUDGET_S = 180
+DRYRUN_CELLS, DRYRUN_SKIPS = 32, 8
+# how far the modelled peak without donation may lie from the card's
+# max_memory_allocated on train_lm's step: 55.82 against 54.94 GB, 1.6 %
+# (PERF.md), so about three times that
+DRYRUN_PEAK_BAND = 0.05
+
+
+def collective_bytes(cost: dict) -> dict:
+    """A cell's collective bytes by kind: each component's times its
+    multiplier (``dryrun.combine`` sums only their total)."""
+    out = {}
+    for comp in cost["components"]:
+        for kind, n in comp["collectives"].items():
+            out[kind] = out.get(kind, 0.0) + comp["multiplier"] * n
+    return out
+
+
+def dryrun_cli(tmp: str) -> dict:
+    """(a) ``python -m repro_torch.launch.dryrun --mesh single --force`` in
+    a subprocess (the fake 512-rank world takes a process of its own) over
+    every assigned cell, a worker a core: per cell rank 0's peak in GB,
+    whether it fits the card's 80 GB, its memory method, the roofline
+    terms, the dominant one, the collective bytes by kind, model_to_hlo
+    and seconds.  The peak is given with the donated arguments reused
+    (``peak_bytes_est``, ``fits_hbm``) and without (``no_donation``,
+    the figure the card's peak agrees with: :func:`dryrun_calibration`).  (The multi-pod pass, memory only, does not fit the
+    phase's budget beside it: ``PERF.md`` gives it from a run of the
+    CLI.)"""
+    jobs = max(1, min(8, os.cpu_count() or 1))
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+            "single", "--force", "--jobs", str(jobs), "--results-dir", tmp]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run(argv, env=env, capture_output=True, text=True,
+                       timeout=900)
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0 or "dry-run complete." not in p.stdout:
+        raise AssertionError(f"dry run exited {p.returncode}: "
+                             f"{p.stdout[-3000:]} {p.stderr[-3000:]}")
+    cells, skipped = [], 0
+    for name in sorted(os.listdir(tmp)):
+        with open(os.path.join(tmp, name)) as fh:
+            rec = json.load(fh)
+        if "skipped" in rec:
+            skipped += 1
+            continue
+        roof = rec["roofline"]
+        cells.append({
+            "arch": rec["arch"], "shape": rec["shape"],
+            "peak_gb": rec["memory"]["peak_bytes_est"] / 1e9,
+            "fits_hbm": rec["fits_hbm"],
+            "no_donation_gb": rec["memory"]["peak_no_donation"] / 1e9,
+            "fits_hbm_no_donation": rec["fits_hbm_no_donation"],
+            "memory_method": rec["memory_method"],
+            **{k: roof[k] for k in ("compute_s", "memory_s",
+                                    "collective_s", "dominant")},
+            "collectives": collective_bytes(rec["cost"]),
+            "model_to_hlo": rec["model_to_hlo"], "seconds": rec["lower_s"]})
+        if not all(np.isfinite(v) and v >= 0 for v in (
+                cells[-1]["peak_gb"], roof["compute_s"], roof["memory_s"],
+                roof["collective_s"])):
+            raise AssertionError(f"dry run cell {cells[-1]}")
+    if (len(cells), skipped) != (DRYRUN_CELLS, DRYRUN_SKIPS):
+        raise AssertionError(f"dry run: {len(cells)} cells and {skipped} "
+                             f"skips, not {DRYRUN_CELLS} and {DRYRUN_SKIPS}")
+    return {"argv": argv[1:], "jobs": jobs, "seconds": seconds,
+            "fit": sum(c["fits_hbm"] for c in cells),
+            "fit_no_donation": sum(c["fits_hbm_no_donation"] for c in cells),
+            "cells": cells}
+
+
+def dryrun_calibration(measured: dict, info: dict) -> dict:
+    """(b) ``train_lm``'s float step (internlm2-1.8b at full width, 8 x
+    256, bf16, remat) lowered on the one-device mesh with
+    ``steps.lower_program`` on meta tensors, beside the card's run of the
+    same step in this script: the walk's ATen ops against the card's (by
+    name where they differ), the reckoned peak against
+    ``torch.cuda.max_memory_allocated``, the roofline time against the
+    measured p50.  It fails if the ops differ, if the peak without
+    donation lies more than ``DRYRUN_PEAK_BAND`` from the card's, or if
+    the roofline time, a bound, lies above the measured p50."""
+    from repro_torch.launch import dryrun
+    cfg = registry.get(LM_NAME).config
+    b = int(TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--global-batch") + 1])
+    s = int(TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--seq-len") + 1])
+    host = mesh_mod.HostMesh()
+    shape = ShapeSpec("custom", s, b, "train")
+    hp = dataclasses.replace(steps.hparams_for(cfg), lr=1e-3,
+                             warmup_steps=2, total_steps=10)
+    prog = dataclasses.replace(
+        steps.build_step_program(cfg, shape, host, n_micro=1),
+        fn=steps.make_train_step(cfg, shape, hp, n_micro=1))
+    t0 = time.perf_counter()
+    lowered = steps.lower_program(prog, host)
+    walk_s = time.perf_counter() - t0
+    walk = collections.Counter("pow" if r.name == "square" else r.name
+                               for r in lowered.records)
+    card = measured["aten_ops_by_name"]
+    differ = {k: {"card": card.get(k, 0), "walk": walk.get(k, 0)}
+              for k in sorted(set(card) | set(walk))
+              if card.get(k, 0) != walk.get(k, 0)}
+    ma = lowered.memory_analysis()
+    cost = dryrun.cost_of(lowered)
+    roof = dryrun.roofline(cost, 1)
+    roof_ms = 1e3 * max(roof["compute_s"], roof["memory_s"],
+                        roof["collective_s"])
+    n_params = sum(t.numel() for t in tree_leaves(prog.args[0]))
+    model_ms = 1e3 * 6.0 * n_params * b * s / roofline.H100_PEAK_FLOPS_BF16
+    no_donation = ma.peak_bytes_est + ma.alias_size_in_bytes
+    off = abs(no_donation - measured["peak_bytes"]) / measured["peak_bytes"]
+    if differ or len(lowered.records) != measured["aten_ops"]:
+        raise AssertionError(
+            f"the walk's ATen ops ({len(lowered.records)}) are not the "
+            f"card's ({measured['aten_ops']}): {differ}")
+    if off > DRYRUN_PEAK_BAND:
+        raise AssertionError(
+            f"modelled peak without donation {no_donation / 1e9:.2f} GB is "
+            f"{100 * off:.1f} % from the card's "
+            f"{measured['peak_bytes'] / 1e9:.2f} GB")
+    if roof_ms > measured["p50_ms"]:
+        raise AssertionError(f"roofline {roof_ms:.1f} ms above the "
+                             f"measured p50 {measured['p50_ms']:.1f} ms")
+    return {
+        "model": LM_NAME, "argv": TRAIN_LM_ARGS,
+        "card": info["nvidia_smi"], "walk_s": walk_s,
+        "aten_ops": {"walk": len(lowered.records),
+                     "card": measured["aten_ops"], "differ": differ},
+        "memory": {"argument_gb": ma.argument_size_in_bytes / 1e9,
+                   "output_gb": ma.output_size_in_bytes / 1e9,
+                   "temp_gb": ma.temp_size_in_bytes / 1e9,
+                   "alias_gb": ma.alias_size_in_bytes / 1e9,
+                   "peak_bytes_est_gb": ma.peak_bytes_est / 1e9,
+                   "no_donation_gb": no_donation / 1e9,
+                   "measured_peak_gb": measured["peak_bytes"] / 1e9,
+                   "no_donation_off": off, "band": DRYRUN_PEAK_BAND},
+        "cost": {k: cost[k] for k in ("flops", "bytes", "collective_bytes")},
+        "roofline": roof, "roofline_ms": roof_ms,
+        "model_flops_ms": model_ms,
+        "measured_p50_ms": measured["p50_ms"],
+        "measured_over_roofline": measured["p50_ms"] / roof_ms}
+
+
+def phase_dryrun(info: dict) -> None:
+    """Phase 26 (see the module docstring): the dry run over every
+    production cell, and the model against the card on ``train_lm``'s
+    step.  It launches no kernel, and fails past ``DRYRUN_BUDGET_S``."""
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out = {"phase": "dryrun"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_",
+                                     dir=build.build_dir()) as tmp:
+        out["cli"] = dryrun_cli(tmp)
+    out["calibration"] = dryrun_calibration(TRAIN_LM_MEASURED, info)
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = DRYRUN_BUDGET_S
+    if out["seconds"] > DRYRUN_BUDGET_S:
+        raise AssertionError(f"phase dryrun took {out['seconds']:.1f} s, "
+                             f"over its {DRYRUN_BUDGET_S} s")
+    rose = _rise(before)
+    if any(rose.values()):
+        raise AssertionError(f"the dry run launched {rose}")
+    emit(out)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -5642,6 +5848,9 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_geometry_mirror(dev)
     seconds["geometry_mirror"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_dryrun(info)
+    seconds["dryrun"] = time.perf_counter() - t0
     emit({"phase": "seconds", "seconds": seconds,
           "total": time.perf_counter() - t_start})
 

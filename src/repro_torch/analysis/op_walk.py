@@ -45,6 +45,7 @@ counterpart of ``aval_bytes``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -380,11 +381,20 @@ def walk(fn, *args, values: bool = False, declared=None, **kwargs) -> Walk:
     return Walk(out, rec.records, rec, decl)
 
 
-def _run(rec: Recorder, fn, args, kwargs):
+def run_with(rec: Recorder, fn, args, einsum: bool = True):
+    """``fn(*args)`` under ``rec`` (a :class:`Recorder` of the caller's)
+    with ``torch.no_grad``; its records stay in ``rec``.  ``einsum=False``
+    leaves the records' ``einsum`` marks unset (a walk that reads no
+    cost, spared the function mode's toll on every call)."""
+    return _run(rec, fn, args, {}, einsum)
+
+
+def _run(rec: Recorder, fn, args, kwargs, einsum: bool = True):
     global recorder
     if recorder is not None:
         raise RuntimeError("op_walk.record does not nest")
-    with torch.no_grad(), _EinsumDepth(rec), rec:
+    marks = _EinsumDepth(rec) if einsum else contextlib.nullcontext()
+    with torch.no_grad(), marks, rec:
         recorder = rec
         try:
             return fn(*args, **kwargs)

@@ -5,6 +5,6 @@ Partition specs and their ``torch.distributed.tensor`` placements
 consults at its activation boundaries (:mod:`repro_torch.dist.ctx`), a
 train step on a ``DeviceMesh`` in local view
 (:mod:`repro_torch.dist.spmd`) and the error-feedback compressed gradient
-sync (:mod:`repro_torch.dist.compress`).  Lowering and pricing the step
-programs is ROADMAP queue A item 4.4.
+sync (:mod:`repro_torch.dist.compress`).  ``launch.steps.lower_program``
+and ``launch.dryrun`` price the step programs on a fake production mesh.
 """

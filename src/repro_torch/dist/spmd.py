@@ -24,6 +24,10 @@ each on its own part, as the reference's ``shard_map`` regions run:
   gradients are meaned over the DP ranks (:func:`grads_on_mesh`).  The
   result is whole (an expert stack: the rank's slice), as the
   compressed sync wants it.
+* **Serving.**  A prefill or decode step (:func:`serve_on_mesh`) runs
+  the same way: weights gathered, the batch and the decode state the
+  rank's data shards, gathered over ``"model"`` (which shards their
+  storage), the new state cut back to its placement.
 * **Update.**  ``optim.adamw.update`` cuts each gradient to the rank's
   shard of its parameter and updates the shards; the global gradient
   norm and an int8 moment's scale are reduced over the mesh
@@ -159,11 +163,12 @@ def dp_total(mesh, dp) -> int:
 
 
 def data_shard(batch: dict, mesh, dp) -> dict:
-    """This rank's chunk of every batch entry's leading dim over ``dp``."""
-    if not dp:
-        return batch
-    places = sharding.placements(sharding.P(dp), mesh)
-    return {k: sharding.local_chunk(v, mesh, places)
+    """This rank's chunk of every batch entry's leading dim over ``dp``;
+    an entry placed already (a ``DTensor``) is its local shard."""
+    places = sharding.placements(sharding.P(dp), mesh) if dp else None
+    return {k: v.to_local() if sharding.is_dtensor(v)
+            else v if places is None
+            else sharding.local_chunk(v, mesh, places)
             for k, v in batch.items()}
 
 
@@ -207,12 +212,74 @@ def grads_on_mesh(grads_fn):
             out = grads_fn(materialize(params), *rest_args,
                            data_shard(batch, mesh, dp))
         loss, grads, *rest = out
-        n = dp_total(mesh, dp)
-        if n > 1:
-            groups = _dp_groups(mesh, dp)
-            loss = _mean_over(loss, groups, n)
-            grads = tree_map(lambda g: _mean_over(g, groups, n), grads)
+        loss, grads = dp_mean((loss, grads), mesh, dp)
         return (loss, grads, *rest)
+    return run
+
+
+def dp_mean(tree, mesh, dp):
+    """Every tensor of ``tree`` (this rank's, whole) meaned over the
+    ``dp`` ranks of ``mesh``: one all-reduce a leaf per DP axis.  A
+    collective: every rank of the mesh calls it."""
+    n = dp_total(mesh, dp)
+    if n <= 1:
+        return tree
+    groups = _dp_groups(mesh, dp)
+    return tree_map(lambda g: _mean_over(g, groups, n), tree)
+
+
+def local_view(tree, dp):
+    """A placed activation tree (a batch, a decode state) as this rank
+    works on it: each ``DTensor`` leaf keeps its shards over the ``dp``
+    axes (the rank's batch shard) and is gathered over every other mesh
+    axis (a decode cache's heads over ``"model"``); other leaves as they
+    are."""
+    from torch.distributed.tensor import Replicate
+
+    def one(x):
+        if not sharding.is_dtensor(x):
+            return x
+        names = sharding.axis_names(x.device_mesh)
+        places = tuple(pl if names[i] in (dp or ()) else Replicate()
+                       for i, pl in enumerate(x.placements))
+        if places != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, places)
+        return x.to_local()
+    return tree_map(one, tree)
+
+
+def _cut_back(new, old, dp):
+    """A leaf of :func:`local_view`'s result, cut back to ``old``'s
+    placement (the inverse of :func:`local_view`; its ``dp`` shards are
+    this rank's already)."""
+    if not sharding.is_dtensor(old):
+        return new
+    mesh = old.device_mesh
+    skip = tuple(a for a in sharding.axis_names(mesh) if a in (dp or ()))
+    return sharding.from_local(
+        sharding.local_chunk(new, mesh, old.placements, skip=skip)
+        .contiguous(), mesh, old.placements, tuple(old.shape))
+
+
+def serve_on_mesh(step):
+    """``step(params, state, batch) -> (logits, state)`` (a prefill or a
+    decode step) run on a mesh in local view when ``params`` is placed:
+    the weights gathered (:func:`materialize`), the batch cut to the
+    rank's data shard (:func:`data_shard`), the decode state's data
+    shards gathered over the other axes (:func:`local_view`: the
+    ``"model"`` axis shards storage, as for the weights); the new state
+    is cut back to the old one's placement and the logits are the rank's
+    rows.  Unplaced ``params`` pass straight through."""
+    def run(params, state, batch):
+        mesh = mesh_of(params)
+        if mesh is None:
+            return step(params, state, batch)
+        size = next(iter(batch.values())).shape[0]
+        with mesh, step_context(mesh, size) as dp:
+            logits, new = step(materialize(params), local_view(state, dp),
+                               data_shard(batch, mesh, dp))
+        return logits, tree_map(lambda n, o: _cut_back(n, o, dp), new,
+                                state)
     return run
 
 

@@ -12,6 +12,11 @@ estimated-cycles column.  Two canonical models ship:
   full 700 W limit (the ``H100_*`` constants; ``chip_smoke.py`` takes its
   kernel bounds from them).  A card set below 700 W runs slower under
   load, so a measured time sits beside the card's power limit.
+  ``H100_NVLINK_BW`` (NVLink 4, 450 GB/s a direction) and
+  ``H100_HBM_BYTES`` (80 GB) serve the dry run (``launch.dryrun``).  A
+  16 x 16 mesh of H100s spans 32 nodes of 8 cards, so most of its
+  ``data`` axis crosses InfiniBand at about 50 GB/s a card: a collective
+  term at the NVLink rate is an optimistic bound.
 
 :func:`calibrate` measures the device instead of trusting a datasheet: an
 f32 matmul for peak FLOP/s and a streaming element-wise pass for memory
@@ -91,6 +96,15 @@ H100_PEAK_FLOPS_BF16 = 989.4e12
 H100_PEAK_OPS_INT8 = 1978.9e12
 H100_HBM_BW = 3.35e12
 H100_CLOCK_HZ = 1.98e9
+# NVLink 4 on the H100 SXM: 18 links x 25 GB/s, bytes/s per direction (the
+# dry run's collective term, the counterpart of the reference's ICI rate).
+# A 16 x 16 mesh of H100s spans 32 nodes of 8 cards: most of its "data"
+# axis crosses InfiniBand at about 50 GB/s a card, so a collective term at
+# the NVLink rate is an optimistic bound.  One constant, as the reference
+# keeps one.
+H100_NVLINK_BW = 450e9
+# the card's nominal device memory (80 GB), the dry run's fits-HBM line
+H100_HBM_BYTES = 80e9
 H100 = MachineModel(name="h100-sxm", peak_flops=H100_PEAK_FLOPS_BF16,
                     mem_bw=H100_HBM_BW, clock_hz=H100_CLOCK_HZ)
 

@@ -429,12 +429,15 @@ def test_prefill_and_decode_steps_vs_reference(name):
     assert tst["index"] == 9
 
 
-def test_mesh_pieces_raise_and_name_item_4():
+def test_mesh_pieces_lower_and_price():
     """The specs and the step program run (held leaf for leaf against the
     reference's in tests/test_torch_specs.py); lowering and pricing a
-    program still raise, naming item 4.4."""
+    program run too: the cost decomposition has the reference's
+    components and multipliers on a one-device mesh, and a component
+    lowers on meta tensors with no collective."""
     from jax.sharding import PartitionSpec as JP
 
+    from repro.launch import mesh as jmesh
     from repro_torch.launch import mesh as tmesh
     jcfg = jregistry.get("internlm2-1.8b").config
     tcfg = tregistry.get("internlm2-1.8b").config
@@ -454,10 +457,18 @@ def test_mesh_pieces_raise_and_name_item_4():
             [tuple(s) for s in tree_leaves_sorted(got)]
     prog = tsteps.build_step_program(tcfg, shape, host)
     assert prog.name == "internlm2-1.8b:train_4k:train"
-    for fn, args in ((tsteps.lower_program, (prog, host)),
-                     (tsteps.cost_programs, (tcfg, shape, host))):
-        with pytest.raises(NotImplementedError, match="queue A item 4.4"):
-            fn(*args)
+    comps = tsteps.cost_programs(tcfg, shape, host)
+    want = jsteps.cost_programs(jcfg, JShape("train_4k", 4096, 256, "train"),
+                                jmesh.make_host_mesh(1, 1))
+    assert [(c.name, c.multiplier) for c in comps] == \
+        [(c.name, c.multiplier) for c in want] == \
+        [("block_fwdbwd", 48), ("outside_fwdbwd", 2), ("optimizer", 1.0)]
+    block = tsteps.lower_program(comps[0], host)
+    assert block.collectives() == {}
+    assert block.cost_analysis()["flops"] > 0
+    assert block.memory_analysis().argument_size_in_bytes == sum(
+        t.numel() * t.element_size() for a in comps[0].args
+        for t in tree_leaves_sorted(a))
 
 
 # ---------------------------------------------------------------------------
