@@ -9,8 +9,9 @@ at full width, on the float and on the int8 KV cache) and the moe LM
 (granite-moe-3b-a800m at full width) served with continuous batching, the recurrent LMs (rwkv6-3b and hymba-1.5b at
 full width) served as one drain batch, the encoder-decoder
 (whisper-large-v3 at full width) run at module level under the ``cuda``
-plan's ``exec_cfg``, and the dense LM trained (internlm2-1.8b at full
-width, float and QAT on the ``cuda`` backend) — on the card, and is the
+plan's ``exec_cfg``, nemotron-4-340b's layers at full width (2 of 96,
+the attention at head_dim 192), and the dense LM trained (internlm2-1.8b
+at full width, float and QAT on the ``cuda`` backend) — on the card, and is the
 quickest proof that the port still builds and starts there:
 
 1. ``device``          the card, its power limit, TF32 off.
@@ -57,14 +58,14 @@ quickest proof that the port still builds and starts there:
    step with one validity bound for every lane, under ``hybrid``.
    ``lut_attention`` cannot be ``torch.equal``: the kernel's own order of
    the dot over D moves an occasional score across a 1/32 LUT bin.  In
-   its LUT mode it is held to its plain version (``ref.lut_attention``,
-   one softmax over all keys) at the reference's 0.05, and to the same
-   online softmax over the same key tiles (``ref.lut_attention_tiled``)
-   at a tight bound measured on the card (``ATTN_TIGHT_*`` below), which
-   only rescaling at the reference's tile edges meets; in its exact mode
-   to both at 2e-5 (at the KWT shapes, where some rows spread wider than
-   the kernel's clip of ``m - s`` at 10, to the tiled version, which has
-   the clip).  At the KWT shapes, the reference's
+   its LUT mode it is held to its plain version, the same online softmax
+   over the same key tiles (``ref.lut_attention_tiled``), at a tight bound
+   measured on the card (``ATTN_TIGHT_*`` below), which only rescaling at
+   the reference's tile edges meets, and to the reference's oracle
+   (``ref.lut_attention``, one softmax over all keys) at the reference's
+   0.05; in its exact mode to both at 2e-5 (at the KWT shapes, where some
+   rows spread wider than the kernel's clip of ``m - s`` at 10, to the
+   tiled version, which has the clip).  At the KWT shapes, the reference's
    sweep shapes (causal and not, several key tiles included), ragged
    shapes and key tiles of 8, 27 and 99 keys against depths of 8, 64 and
    72, each also on strided views in the layer's ``[B, L, H, D]`` layout
@@ -299,6 +300,21 @@ quickest proof that the port still builds and starts there:
                        and their greedy tokens (recorded); p50 ms of
                        ``encode``, ``prefill`` and ``decode_step``, ATen
                        ops per step, peak GB.
+    ``lm_nemotron``    nemotron-4-340b at full width (d 18432, 96 heads / 8
+                       KV at head_dim 192, d_ff 73728, vocab 256000, bf16,
+                       squared ReLU, LayerNorm), the depth cut to 2 of 96
+                       layers; weights drawn on the card from a seed and
+                       quantised once, every plan compiled from the packed
+                       tree, one at a time.  The ``cuda`` + ``flash_lut``
+                       forward of 2 x 1024 tokens (the attention at
+                       head_dim 192 once a layer, the K = 18432 head once),
+                       against ``cuda`` + ``xla`` (``LM_FLASH_*``) and
+                       ``lut`` + ``flash_lut`` (recorded); prefill + decode
+                       against forward (``NEMOTRON_DECODE_REL``; at float32
+                       activations ``LM_DECODE_REL``), per-lane == scalar;
+                       8 requests on 4 slots through ``LMScheduler``,
+                       tokens served == budgets; p50 ms per forward and per
+                       decode step, ATen ops per step, peak GB.
 
 19. ``train_lm``       LM training (ROADMAP A3.4): internlm2-1.8b at full
                        width (bf16 params drawn on the card from a seed,
@@ -449,13 +465,21 @@ quickest proof that the port still builds and starts there:
    phase (3) also holds and times the whisper shapes: the softmax on an
    encoder query chunk ``[40960, 1500]`` and cross rows ``[80, 1500]``,
    the GELU in bf16 at ``[6000, 5120]`` and ``[4, 5120]``, the attention
-   ``(4, 20, 20, 1500, 1500, 64)`` at key tiles of 4 (under ``encdec``).
+   ``(4, 20, 20, 1500, 1500, 64)`` at key tiles of 4 (under ``encdec``),
+   and nemotron-4-340b's (under ``nemotron``): the head ``[B, 18432] @
+   [18432, 256000]`` at B = 4 and 64, float32 and bf16 activations, the
+   causal GQA attention ``(2, 96, 8, 1024, 1024, 192)`` in float32 and
+   bf16, and the wide attention's edges at D of 136, 192, 200 and 256
+   (key tiles of 4, 32 and 128, one query, causal and not, LUT and
+   exact).  Each attention row carries its launch geometry, the kernel
+   instance included.
 
 The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
 the train phases (11, 12), the LM server with its ``flash_lut`` forward
 (13), the int8-cache scheduler run (``lm_int8_kv``), the moe server
-(15), the two recurrent LMs' drain batches (16, 17) and the whisper
-clips with their ``flash_lut`` forward (18), the LM launcher's runs
+(15), the two recurrent LMs' drain batches (16, 17), the whisper
+clips with their ``flash_lut`` forward (18), nemotron's ``flash_lut``
+forward and served requests (``lm_nemotron``), the LM launcher's runs
 (19: internlm2's float and QAT runs, the smoke LM's three), the
 example twins (21) and the mesh runs (25) are the main
 paths: the
@@ -573,10 +597,10 @@ KWT1_LUT_ATOL = 0.5           # 12 layers amplify an LSB flip; see PERF.md
 KWT1_MIN_ARGMAX_AGREE = 0.75
 CPU_BATCHES = (1, 8)          # batches also answered by the same plan on the CPU
 
-# lut_attention against the online softmax over the same key tiles
-# (ref.lut_attention_tiled) and, LUT mode, its plain version
+# lut_attention against its plain version, the online softmax over the
+# same key tiles (ref.lut_attention_tiled), and, LUT mode, the oracle
 ATTN_EXACT_TOL = 2e-5         # rtol and atol, exact mode (the reference's)
-ATTN_LUT_ATOL = 0.05          # LUT mode against the plain version: the
+ATTN_LUT_ATOL = 0.05          # LUT mode against the oracle: the
                               # reference's own bound
 # LUT mode against the tiled version, tight: within
 # 1.2e-6 but where a score lands on a 1/32 bin edge, which moves its row
@@ -951,19 +975,21 @@ def check_matmul_raw(dev, gen, m, k, n, shift, out_int16):
 
 
 def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
-                    timed=False, exact_vs_plain=True, strided=False,
+                    timed=False, exact_vs_oracle=True, strided=False,
                     qkv=None):
-    """The wrapper against ``ref.lut_attention_tiled`` at the wrapper's
-    key tile and against its plain version ``ref.lut_attention``, on the
-    same CUDA tensors.  ``shape`` = (b, hq, hkv, lq, lk, d).  The exact
-    mode keeps the reference kernel's clip of ``m - s`` at 10, which the
-    plain version lacks: ``exact_vs_plain=False`` where rows spread wider.
+    """The wrapper against its plain version ``ref.lut_attention_tiled`` at
+    the wrapper's key tile and against the reference's oracle
+    ``ref.lut_attention``, on the same CUDA tensors.  ``shape`` = (b, hq,
+    hkv, lq, lk, d).  The exact mode keeps the reference kernel's clip of
+    ``m - s`` at 10, which the oracle lacks: ``exact_vs_oracle=False``
+    where rows spread wider.
     ``strided``: q, k, v are views of ``[B, L, H, D]`` tensors transposed,
     as the layer passes them, and the output must be laid out so that the
     layer's ``transpose(1, 2).reshape(B, L, H * D)`` is a view.  ``qkv``:
     a model's own (q, k, v) in place of random ones.  The LUT mode is held
     to the tight terms against the tiled version and to the reference's
-    0.05 against the plain one, in float32 and bfloat16 alike."""
+    0.05 against the oracle, in float32 and bfloat16 alike; ``plain_ms``
+    times the tiled version."""
     b, hq, hkv, lq, lk, d = shape
     if qkv is not None:
         q, k, v = qkv
@@ -984,8 +1010,8 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
                              "operands is not laid out [B, L, H, D]")
     want = ref.lut_attention_tiled(q, k, v, causal=causal, use_lut=use_lut,
                                    block_k=block_k)
-    plain = ref.lut_attention(q, k, v, causal=causal, softmax_mode=mode)
-    plain_err = max_abs_err(got, plain)
+    oracle = ref.lut_attention(q, k, v, causal=causal, softmax_mode=mode)
+    oracle_err = max_abs_err(got, oracle)
     torch.cuda.synchronize()
     what = f"lut_attention {mode} causal={causal} {shape} {dtype}"
     if got.dtype != q.dtype or got.shape != q.shape:
@@ -997,24 +1023,27 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
     share = float((diff <= 1e-5).double().mean()) if diff.numel() else 1.0
     if use_lut:
         ok = err <= ATTN_TIGHT_ATOL and share >= ATTN_TIGHT_MIN_SHARE \
-            and plain_err <= ATTN_LUT_ATOL
+            and oracle_err <= ATTN_LUT_ATOL
     elif dtype == torch.float32:
         ok = all(bool(torch.allclose(got, w, rtol=ATTN_EXACT_TOL,
                                      atol=ATTN_EXACT_TOL))
-                 for w in ((want, plain) if exact_vs_plain else (want,)))
+                 for w in ((want, oracle) if exact_vs_oracle else (want,)))
     else:
         raise ValueError(f"{what}: the exact mode has terms in float32 only")
     if not ok:
         raise AssertionError(f"{what}: max abs err {err}, share within "
                              f"1e-5 {share} (tiled version), max abs err "
-                             f"{plain_err} (plain version)")
+                             f"{oracle_err} (oracle)")
     row = {"variant": mode + (" causal" if causal else "")
            + (" strided" if strided else ""),
            "dtype": str(dtype).split(".")[1], "shape_bhhlld": list(shape),
            "block_k": block_k, "equal": False,
+           # (grid, threads, shared memory, kernel instance) of the launch
+           "geometry": an_geometry.c_query(
+               "lut_attention", (b, hq, hkv, lq, lk, d, block_k))[1],
            "max_abs_err": err, "within_1e-5": share,
-           "plain_max_abs_err": plain_err}
-    del got, want, plain, diff
+           "oracle_max_abs_err": oracle_err}
+    del got, want, oracle, diff
     if timed:
         nbytes = q.element_size() * (2 * b * hq * lq * d + 2 * b * hkv * lk * d) \
             + perf_cost.EXP_LUT_BYTES
@@ -1041,8 +1070,8 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
         row.update(bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
         row.update(bytes=nbytes, bound_ms=b_ms, bound_by=by, **timings(
             lambda: ops.lut_attention(q, k, v, causal=causal, use_lut=use_lut),
-            lambda: ref.lut_attention(q, k, v, causal=causal,
-                                      softmax_mode=mode),
+            lambda: ref.lut_attention_tiled(q, k, v, causal=causal,
+                                            use_lut=use_lut, block_k=block_k),
             lambda: sdpa(q, k, v, is_causal=causal), numel))
     return row
 
@@ -1130,7 +1159,7 @@ def phase_kernels(dev, configs) -> dict:
             # the LUT mode is the one the main path runs, and is timed
             for use_lut in (True, False):
                 r = check_attention(dev, gen, sh["attention"], False, use_lut,
-                                    timed=use_lut, exact_vs_plain=False)
+                                    timed=use_lut, exact_vs_oracle=False)
                 rows["lut_attention"].append(
                     {"model": cfg.name, "batch": b, **r})
             for fixed in (True, False):
@@ -1341,6 +1370,55 @@ def lm_kernel_rows(dev, gen, rows) -> None:
             (hc.n_kv_heads, hc.n_heads // hc.n_kv_heads), RECURRENT_LANES,
             HYMBA_NAME, sq=RECURRENT_PROMPT), "batch": RECURRENT_LANES})
     whisper_kernel_rows(dev, gen, rows)
+    nemotron_kernel_rows(dev, gen, rows)
+
+
+# the wide attention kernel's edges (128 < D <= 256, phase kernels): depths
+# either side of its two builds (DT 24 up to 192, DT 32 up to 256) against
+# key tiles of 4 (fit_block(132, 128)), 32 (160 keys) and 128 (256 keys),
+# and one query against two tiles of 128 keys (a decode step of 16 lanes);
+# GQA 2 to 1; (b, hq, hkv, lq, lk).  Each has 128 rows or more: a score
+# that the kernel's order of the dot moves across a LUT bin moves its row,
+# and the tight share counts elements
+NEMOTRON_EDGE_D = (136, 192, 200, 256)
+NEMOTRON_EDGE_SHAPES = ((2, 4, 2, 64, 132), (2, 4, 2, 64, 160),
+                        (2, 4, 2, 64, 256), (16, 8, 2, 1, 256))
+
+
+def nemotron_kernel_rows(dev, gen, rows) -> None:
+    """nemotron-4-340b's shapes: the head ``[B, 18432] @ [18432, 256000]``
+    at LM_HEAD_ROWS, per channel, float32 and bf16 activations; the causal
+    GQA attention ``(2, 96, 8, 1024, 1024, 192)`` on strided views,
+    float32 and bf16, timed; and the wide kernel's edges
+    (NEMOTRON_EDGE_*), causal and not, LUT and exact, with bf16 at each
+    depth."""
+    cfg = registry.get(NEMOTRON_NAME).config
+    for m in LM_HEAD_ROWS:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            r = check_matmul(dev, gen, "lm_head", m, cfg.d_model,
+                             cfg.padded_vocab, per_channel=True, x_float=True,
+                             axis_range=(-8, 9), timed=True, x_dtype=x_dtype)
+            rows["int8_matmul"].append({"model": NEMOTRON_NAME, "batch": m,
+                                        **r})
+            gc.collect()
+            torch.cuda.empty_cache()
+    shape = (LM_FLASH_TOKENS[0], cfg.n_heads, cfg.n_kv_heads,
+             LM_FLASH_TOKENS[1], LM_FLASH_TOKENS[1], cfg.resolved_head_dim)
+    for dtype in (torch.float32, torch.bfloat16):
+        r = check_attention(dev, gen, shape, True, True, dtype=dtype,
+                            timed=True, strided=True)
+        rows["lut_attention"].append({**r, "model": NEMOTRON_NAME,
+                                      "batch": shape[0]})
+    for d in NEMOTRON_EDGE_D:
+        for edge in NEMOTRON_EDGE_SHAPES:
+            for causal, use_lut in ((True, True), (False, True),
+                                    (False, False)):
+                rows["lut_attention"].append(check_attention(
+                    dev, gen, (*edge, d), causal, use_lut,
+                    strided=edge[3] > 1))
+        rows["lut_attention"].append(check_attention(
+            dev, gen, (2, 4, 2, 64, 256, d), True, True,
+            dtype=torch.bfloat16))
 
 
 def whisper_kernel_rows(dev, gen, rows) -> None:
@@ -4023,7 +4101,7 @@ def phase_lm_whisper(dev) -> tuple:
             "gelu_dtype": str(gelus[0][0].dtype), "equal": True,
             "attention": {k: {f: r[f] for f in ("shape_bhhlld", "block_k",
                                                 "max_abs_err", "within_1e-5",
-                                                "plain_max_abs_err")}
+                                                "oracle_max_abs_err")}
                           for k, r in attn.items()}}
         del enc_scores, cross, gelus, qkv, q, k, hv
         # 2. decode against forward: cuda (bf16), float at float32
@@ -4098,6 +4176,216 @@ def phase_lm_whisper(dev) -> tuple:
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     checks = _rise(checks)
     out.update(check_launches=checks, failures=failures,
+               seconds=time.perf_counter() - t_phase)
+    emit(out)
+    if failures:
+        raise AssertionError(f"{cfg.name}: " + "; ".join(failures))
+    return path, checks, expected
+
+
+# ---------------------------------------------------------------------------
+# nemotron-4-340b at full width (lm_nemotron)
+# ---------------------------------------------------------------------------
+
+# Every width published (d_model 18432, 96 heads and 8 KV heads at
+# head_dim 192, d_ff 73728, vocab 256000, bf16, squared ReLU, LayerNorm);
+# the depth cut from 96 layers to NEMOTRON_LAYERS: a layer is 6.91 GB in
+# bf16 and 13.82 GB as the integer plans' float32 block view, and one
+# card holds the packed tree and one plan of 2 layers (PERF.md §4).
+NEMOTRON_NAME = "nemotron-4-340b"
+NEMOTRON_LAYERS = 2
+# prefill of 63 tokens + one decode step against forward on the cuda plan,
+# as LM_DECODE_REL's check: measured on the card 0.101 (0.071 after 1023
+# tokens), greedy tokens equal, and 0.0034 on the same plan at float32
+# activations: the bf16 residual stream, 18432 wide, makes the rest (a
+# bf16 step of 2^-9 turns eq-9 codes of the head's input).  So the bf16
+# plan is held to NEMOTRON_DECODE_REL, about twice the measured gap, and
+# the float32-activation plan to LM_DECODE_REL, each with its argmax.
+NEMOTRON_DECODE_REL = 0.2
+
+
+def phase_lm_nemotron(dev) -> tuple:
+    """nemotron-4-340b at full width, depth cut to NEMOTRON_LAYERS; random
+    weights drawn on the card from the seed and quantised once (the bf16
+    source dropped), every plan compiled from the packed tree, one alive
+    at a time: the ``cuda`` + ``flash_lut`` forward of LM_FLASH_TOKENS
+    (8 key tiles a row, the wide attention kernel at head_dim 192, the
+    K = 18432 head) against the ``cuda`` + ``xla`` forward and, recorded,
+    the ``lut`` + ``flash_lut`` one (the kernel's plain version on the
+    card); on the ``xla`` plan a prefill of S - 1 tokens and one decode
+    step against the forward's last logits (per-lane == scalar index) at
+    S = 64 (NEMOTRON_DECODE_REL, and LM_DECODE_REL at float32
+    activations) and S = 1024 (recorded), 8
+    requests on 4 slots served through ``cell.scheduler.LMScheduler`` (the
+    LUT softmax kernel on 96 heads' masked rows), p50 per forward and per
+    decode step, ATen ops a decode step, the peak GB.  Returns the path's
+    launches (the flash forward and the served run), the other checks'
+    launches and the path's expected."""
+    t_phase = time.perf_counter()
+    published = registry.get(NEMOTRON_NAME).config
+    cfg = published.with_(n_layers=NEMOTRON_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = ops.launch_counts()
+    t0 = time.perf_counter()
+    params = lm_model.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    qtree = runtime.QuantRecipe.from_config(cfg).quantize(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "lm_nemotron", "model": cfg.name,
+           "n_layers": cfg.n_layers, "n_layers_published": published.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "activation": cfg.activation, "norm": cfg.norm,
+           "packed_gb": quant.tree_quantized_bytes(qtree)[0] / 1e9,
+           "init_quantize_seconds": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    failures = []
+    rng = np.random.default_rng(7)
+    ftoks = rng.integers(0, cfg.vocab_size, LM_FLASH_TOKENS).astype(np.int32)
+    want_shape = (*LM_FLASH_TOKENS, cfg.padded_vocab)
+
+    # the path: the flash_lut forward of the cuda plan
+    flash = runtime.compile_model(cfg, qtree, backend="cuda",
+                                  attention="flash_lut", device=dev)
+    out["describe"] = flash.describe()
+    before = ops.launch_counts()
+    with launch_log(True):
+        f_logits = flash.forward(ftoks)
+    torch.cuda.synchronize()
+    path = _rise(before)
+    expected = lm_expected(cfg, 1, "flash_lut")
+    if path != expected:
+        failures.append(f"flash_lut forward launched {path}, expected "
+                        f"{expected}")
+    if tuple(f_logits.shape) != want_shape or \
+            not bool(torch.isfinite(f_logits).all()):
+        failures.append(f"flash_lut logits {tuple(f_logits.shape)}, or "
+                        "not finite")
+    out["p50_forward_ms"] = p50_forward_ms(flash, ftoks)
+    del flash
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the xla plan: its forward, decode against it, the served requests
+    eng = runtime.compile_model(cfg, qtree, backend="cuda", device=dev)
+    x_logits = eng.forward(ftoks)
+    agree = float((f_logits.argmax(-1) == x_logits.argmax(-1)).float().mean())
+    out["flash_vs_xla"] = {"tokens": list(LM_FLASH_TOKENS),
+                           "max_abs": float((f_logits - x_logits).abs().max()),
+                           "argmax_agree": agree}
+    if agree < LM_FLASH_MIN_ARGMAX or \
+            out["flash_vs_xla"]["max_abs"] > LM_FLASH_ATOL:
+        failures.append(f"flash_lut forward against xla: "
+                        f"{out['flash_vs_xla']}")
+    # prefill + one decode step against the forward's last logits: at
+    # LM_CHECK_TOKENS under NEMOTRON_DECODE_REL and, at float32
+    # activations, LM_DECODE_REL; at LM_FLASH_TOKENS (a prefill of two
+    # query chunks) recorded; greedy tokens and per-lane steps held
+    ctoks = rng.integers(0, cfg.vocab_size,
+                         LM_CHECK_TOKENS).astype(np.int32)
+    dvf = out["decode_vs_forward"] = {}
+    f32 = dataclasses.replace(eng, exec_cfg=eng.exec_cfg.with_(
+        dtype="float32"))
+    for tag, e, toks, logits in (
+            (str(LM_CHECK_TOKENS[1] - 1), eng, ctoks, None),
+            (str(LM_FLASH_TOKENS[1] - 1), eng, ftoks, x_logits),
+            # the same plan at float32 activations: what the bf16
+            # residual stream adds (recorded)
+            (f"{LM_CHECK_TOKENS[1] - 1} float32", f32, ctoks, None)):
+        if logits is None:
+            logits = e.forward(toks)
+        state = e.init_decode_state(*toks.shape)
+        _, state = e.prefill(toks[:, :-1], state)
+        lanes = {"layers": {k: v.clone()
+                            for k, v in state["layers"].items()},
+                 "index": torch.full((toks.shape[0],), state["index"],
+                                     dtype=torch.long, device=dev)}
+        dec, _ = e.decode_step(toks[:, -1], state)
+        dec_lanes, _ = e.decode_step(toks[:, -1], lanes)
+        last = logits[:, -1].float()
+        dvf[tag] = {
+            "rel": float((dec.float() - last).abs().max()
+                         / last.abs().max()),
+            "argmax_equal": bool(torch.equal(dec.argmax(-1),
+                                             last.argmax(-1))),
+            "per_lane_equal": bool(torch.equal(dec, dec_lanes))}
+        del state, lanes, dec, dec_lanes, last, logits
+    del f32, e                 # each holds the plan
+    short = str(LM_CHECK_TOKENS[1] - 1)
+    if dvf[short]["rel"] >= NEMOTRON_DECODE_REL or \
+            dvf[short + " float32"]["rel"] >= LM_DECODE_REL or not all(
+                v["argmax_equal"] and v["per_lane_equal"]
+                for v in dvf.values()):
+        failures.append(f"prefill + decode_step against forward: {dvf}, "
+                        f"over {NEMOTRON_DECODE_REL} (bf16) or "
+                        f"{LM_DECODE_REL} (float32 activations) after "
+                        f"{short} tokens, another greedy token or a "
+                        "per-lane step apart from the scalar one")
+    requests = lm_serve.make_requests(cfg, 8, 256, 0)
+    reg = telemetry.Registry()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    with cellmod.ServeCell(eng, slots=LM_SLOTS, registry=reg) as cell:
+        sched = cell.lm_scheduler(max_len=256)
+        for r in requests:
+            sched.submit(r["id"], r["prompt"], r["gen"])
+        served = sched.run()
+    torch.cuda.synchronize()
+    del cell, sched            # each holds the plan
+    out["serve_seconds"] = time.perf_counter() - t0
+    served_rose = _rise(before)
+    steps_run = reg.histogram("cell_decode_latency_ms").summary()["n"]
+    prefills = reg.histogram("cell_prefill_latency_ms").summary()["n"]
+    served_expected = lm_expected(cfg, steps_run + prefills)
+    if served_rose != served_expected:
+        failures.append(f"the served run launched {served_rose}, expected "
+                        f"{served_expected} ({steps_run} decode steps, "
+                        f"{prefills} prefills)")
+    for r in requests:
+        got = served.get(r["id"], [])
+        if len(got) != r["gen"] or not all(0 <= t < cfg.vocab_size
+                                           for t in got):
+            failures.append(f"request {r['id']}: {len(got)} tokens of "
+                            f"{r['gen']}, or a pad id")
+    out.update(decode_steps=steps_run, prefills=prefills,
+               tokens_served=sum(len(v) for v in served.values()),
+               tokens_budgeted=sum(r["gen"] for r in requests))
+    ptoks = rng.integers(0, cfg.vocab_size, (LM_SLOTS, 63)).astype(np.int32)
+    timed, cur, st = time_lm_calls(eng, ptoks)
+    with CountOps() as counter:
+        eng.decode_step(cur, st)
+    del st, eng
+    out.update(timed, prefill_tokens=list(ptoks.shape),
+               aten_ops_per_decode_step=counter.n)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the lut plan's flash_lut forward: the kernel's plain version on the
+    # card in the kernel's place, the same integer pipeline besides
+    lut = runtime.compile_model(cfg, qtree, backend="lut",
+                                attention="flash_lut", device=dev)
+    l_logits = lut.forward(ftoks)
+    del lut
+    out["cuda_vs_lut_flash"] = {
+        "max_abs": float((f_logits - l_logits).abs().max()),
+        "argmax_agree": float((f_logits.argmax(-1) == l_logits.argmax(-1))
+                              .float().mean())}
+    if not bool(torch.isfinite(l_logits).all()):
+        failures.append("lut + flash_lut logits not finite")
+    del f_logits, x_logits, l_logits, qtree
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    path = {k: path[k] + served_rose[k] for k in path}
+    expected = {k: expected[k] + served_expected[k] for k in expected}
+    checks = {k: v - path[k] for k, v in _rise(start).items()}
+    out.update(launches=path, launches_expected=expected,
+               check_launches=checks, failures=failures,
                seconds=time.perf_counter() - t_phase)
     emit(out)
     if failures:
@@ -4854,7 +5142,8 @@ EXTRA_KEYS = ("bytes_bound_ms", "input", "library_call", "int_mm_ms",
               "f32_matmul_device_ms", "bf16_matmul_ms",
               "bf16_matmul_device_ms", "pairs_per_head")
 LM_ROW_KEYS = ("variant", "tag", "batch", "shape", "shape_mkn",
-               "shape_bhhlld", "block_k", "within_1e-5", "plain_max_abs_err",
+               "shape_bhhlld", "block_k", "geometry", "within_1e-5",
+               "oracle_max_abs_err",
                "dtype", "max_abs_err") + TIMED_KEYS + EXTRA_KEYS
 
 
@@ -5432,7 +5721,11 @@ def kernels_line(rows: dict, launches: dict, expected: dict,
             # the encoder-decoder's rows (whisper-large-v3, 4 clips)
             "encdec": [{k: r[k] for k in LM_ROW_KEYS if k in r}
                        for r in rows[name]
-                       if r.get("model") == WHISPER_NAME and "ms" in r]})
+                       if r.get("model") == WHISPER_NAME and "ms" in r],
+            # nemotron-4-340b's head and head_dim-192 attention
+            "nemotron": [{k: r[k] for k in LM_ROW_KEYS if k in r}
+                         for r in rows[name]
+                         if r.get("model") == NEMOTRON_NAME and "ms" in r]})
     return {"kernels": entries}
 
 
@@ -5786,6 +6079,21 @@ def main() -> None:
         raise AssertionError(f"encdec launches {launches['encdec']} are not "
                              f"those of its clips and flash forward, {rose}")
     seconds["lm_whisper"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the nemotron path: its flash_lut forward and its served requests,
+    # less the launches of the checks its phase makes besides
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    rose, nchecks, nexp = phase_lm_nemotron(dev)
+    counted = ops.launch_counts()
+    launches["lm_nemotron"] = {n: counted[n] - nchecks[n] for n in counted}
+    expected["lm_nemotron"] = nexp
+    if launches["lm_nemotron"] != rose:
+        raise AssertionError(f"lm_nemotron launches "
+                             f"{launches['lm_nemotron']} are not those of "
+                             f"its flash forward and served run, {rose}")
+    seconds["lm_nemotron"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     # the LM train path: the launcher's runs (internlm2-1.8b at full width,

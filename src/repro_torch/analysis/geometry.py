@@ -57,7 +57,8 @@ _OPTS_IN = {"int8_matmul": True, "lut_attention": True,
 # reserved a block), blocks, registers
 _SM_THREADS, _SM_SMEM, _SM_BLOCKS, _SM_REGS = 2048, 233472, 32, 65536
 # registers a thread where the kernel's launch bounds fix them
-# (csrc/lut_attention.cu: one block an SM, all 255 registers)
+# (csrc/lut_attention.cu: one block an SM, all 255 registers, at every
+# depth)
 _REGS = {"lut_attention": 255}
 
 

@@ -1,10 +1,11 @@
 """nemotron-4-340b [dense]: 96L d_model=18432 96H (GQA kv=8) d_ff=73728
 vocab=256000 — GQA, squared-ReLU MLP.  [arXiv:2402.16819]
 
-Largest assigned arch (~340B params).  Only its smoke config runs in
-the port: the full one needs sharding across many cards (the port's mesh
-runs on one card, or on gloo CPU ranks), and its head_dim of 192 is
-above the flash-LUT attention kernel's D <= 128 (ROADMAP B2).
+Largest assigned arch (~340B params).  Its layers run at full width on
+one card at a cut depth (``chip_smoke.py`` phase ``lm_nemotron``: 2 of
+96 layers, the flash-LUT attention at head_dim 192 on
+``csrc/lut_attention_wide.cu``); the full depth needs sharding across
+many cards (the port's mesh runs on one card, or on gloo CPU ranks).
 """
 from repro_torch.configs.base import ArchEntry, LM_SHAPES, ModelConfig
 

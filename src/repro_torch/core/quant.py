@@ -244,6 +244,9 @@ def choose_exponent(w: torch.Tensor, *, bits: int = 8) -> int:
     return int(np.floor(np.log2((2 ** (bits - 1) - 1) / maxabs)))
 
 
+F64_SLICE_ELEMS = 1 << 27    # elements of w a float64 product takes (1 GiB)
+
+
 def exact_int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over integer tensors with int32 (wrapping) accumulation.
 
@@ -254,6 +257,9 @@ def exact_int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (every partial sum is then an integer float32 holds; TF32 must be
     off), float64 otherwise — exact for any K below 2^37 — cast back
     through int64 so that an overflowing accumulator wraps as int32 does.
+    The float64 copy of ``w`` is taken a slice of columns at a time, at
+    most ``F64_SLICE_ELEMS`` elements (nemotron-4-340b's head would take
+    37.7 GB whole); each column's sum is exact either way.
     """
     if x.device.type == "cpu":
         return torch.matmul(x.to(torch.int32), w.to(torch.int32))
@@ -261,8 +267,13 @@ def exact_int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if narrow and x.shape[-1] * 2 ** 14 <= _F32_EXACT:
         return torch.matmul(x.to(torch.float32),
                             w.to(torch.float32)).to(torch.int32)
-    acc = torch.matmul(x.to(torch.float64), w.to(torch.float64))
-    return acc.to(torch.int64).to(torch.int32)
+    x64, n = x.to(torch.float64), w.shape[-1]
+    step = max(1, F64_SLICE_ELEMS // max(1, w.numel() // max(n, 1)))
+    out = torch.empty((*x.shape[:-1], n), dtype=torch.int32, device=x.device)
+    for n0 in range(0, n, step):
+        acc = torch.matmul(x64, w[..., n0:n0 + step].to(torch.float64))
+        out[..., n0:n0 + step] = acc.to(torch.int64).to(torch.int32)
+    return out
 
 
 def qmatmul(x: QTensor, w: QTensor, *, out_exponent: int | None = None,
@@ -404,16 +415,14 @@ def int_exec_einsum(eq: str, x: torch.Tensor, w: QTensor, *,
     the stored payload as they are; the torch realisation below is that
     kernel's plain version — same eq-9 roundings, same integer
     accumulation, same int16 clip, same epilogue order, identical bits.
+    The weight-last (tied-head) layout takes the torch realisation on
+    every plan, as the reference sends only ``[K, N]`` weights to its
+    kernel.
     """
     lhs, rhs = eq.split("->")[0].split(",")
     transpose_w = rhs[0] != lhs[-1]       # weight-last (tied head) layout
     k = int(x.shape[-1])
-    if use_kernel:
-        if transpose_w:
-            raise NotImplementedError(
-                "the weight-last (tied-head) layout waits for ROADMAP queue "
-                "B, B1 (the encdec family ties its head): the CUDA int8 "
-                "matmul takes [K, N] weights")
+    if use_kernel and not transpose_w:
         from repro_torch.kernels import ops as _kops
         # the float activation goes in as it is: the kernel quantises it
         return _kops.int8_matmul(x, w, x_exp=x_exp, x_bits=x_bits,

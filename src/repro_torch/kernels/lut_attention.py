@@ -1,12 +1,14 @@
 """Flash attention with the LUT exp in the online softmax: wrapper of the
-CUDA kernel ``csrc/lut_attention.cu`` (which replaces the reference's
-Pallas ``lut_attention``).  Plain version: :func:`ref.lut_attention`,
-which takes the softmax over the whole key axis at once — the kernel's
-online form agrees with it to float32 rounding where the keys are one
-tile, and within the LUT's bin width (the reference's own 0.05 bound)
-where they are several.  :func:`ref.lut_attention_tiled` is the kernel's
-online softmax over the same key tiles, against which the kernel is held
-tightly wherever the keys are cut.
+CUDA kernels ``csrc/lut_attention.cu`` (D <= 128) and
+``csrc/lut_attention_wide.cu`` (128 < D <= 256), which replace the
+reference's Pallas ``lut_attention``.  Plain version:
+:func:`ref.lut_attention_tiled`, the same online softmax over the same
+key tiles (the reference kernel's own arithmetic, to float32 rounding),
+against which the kernel is held tightly.  :func:`ref.lut_attention`, one
+softmax over the whole key axis, stays the reference's oracle: the online
+form agrees with it to float32 rounding where the keys are one tile, and
+within the LUT's bin width (the reference's own 0.05 bound) where they
+are several.
 
 The kernel reads its operands where they lie: any strides for batch,
 head and row, the depth axis at stride 1.  So the model hands it views of
@@ -22,20 +24,52 @@ from repro_torch.kernels import _launch, ref
 launches = 0   # kernel launches made by this wrapper (both modes)
 
 MAX_BLOCK_K = 128   # keys a tile: the score tile of a warp stays in registers
-MAX_D = 128
+NARROW_D = 128      # attn_kernel; above it attn_wide_kernel
+MAX_D = 256
 _INT32_MAX = 2 ** 31 - 1
-_MAX_WARPS, _ENTRIES, _MAX_SMEM = 8, 320, 232448   # csrc/lut_attention.cu
+_MAX_WARPS, _ENTRIES, _MAX_SMEM = 8, 320, 232448   # csrc/lut_attention_tile.cuh
 
 
 def _smem_floats(stages: int, wpb: int, nt: int, srow: int) -> int:
     return _ENTRIES + stages * wpb * 16 * srow + stages * 2 * nt * 8 * srow
 
 
+def _wide_geometry(pairs: int, lq: int, d: int, bk: int, sms: int,
+                   occupancy) -> tuple:
+    """``launch_wide``'s choice (D > 128): one stage, two warps a group of
+    16 query rows, at most 4 groups a block, halved while an SM holds no
+    block."""
+    dt = 24 if d <= 192 else 32
+    nt = 4 if bk <= 32 else 16
+    srow = dt * 8 + 4
+    groups = -(-lq // 16)
+    splits = 1 if pairs >= 2 * sms else -(-(2 * sms) // pairs)
+    splits = min(max(splits, 1), groups)
+    gpb = min(-(-groups // splits), _MAX_WARPS // 2)
+    while True:
+        splits = -(-groups // gpb)
+        items = pairs * splits
+        if items > _INT32_MAX:
+            return 1, (0, 0, 0, 0)
+        threads = 64 * gpb
+        nbytes = (_ENTRIES + gpb * 16 * srow + nt * 8 * srow) * 4
+        bps = occupancy(("lut_attention", dt, nt), threads, nbytes) \
+            if nbytes <= _MAX_SMEM else 0
+        if bps <= 0:
+            if gpb == 1:
+                return 1, (0, 0, 0, 0)
+            gpb = (gpb + 1) // 2
+            continue
+        return 0, (min(items, bps * sms), threads, nbytes,
+                   (dt * 100 + nt) * 10 + 1)
+
+
 def geometry(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, bk: int, *,
              sms: int, occupancy) -> tuple:
     """The launcher's choice for ``lut_attention_geometry``'s arguments,
     written out in Python: ``(code, (grid, threads, shared memory,
-    variant))``, variant ``(DT * 100 + NT) * 10 + stages``.
+    variant))``, variant ``(DT * 100 + NT) * 10 + stages`` (DT > 16: the
+    wide kernel of D > 128).
     ``occupancy(("lut_attention", DT, NT), threads, smem)`` is the blocks an
     SM holds (the card's answer, or a model of it)."""
     if hkv <= 0 or hq % hkv or bk <= 0 or bk > MAX_BLOCK_K or lk % bk \
@@ -44,6 +78,8 @@ def geometry(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, bk: int, *,
     pairs = b * hq
     if pairs == 0 or lq == 0:
         return 0, (0, 0, 0, 0)
+    if d > NARROW_D:
+        return _wide_geometry(pairs, lq, d, bk, sms, occupancy)
     dt = 1 if d <= 8 else 8 if d <= 64 else 16
     nt = 4 if bk <= 32 else 13 if 96 < bk <= 104 else 16
     srow = dt * 8 + 4
@@ -108,7 +144,9 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (it must divide Lk); it is not a performance knob: the LUT rescale
     makes the answer depend on it.  Operands may be strided views (depth
     at stride 1); on the card the output is laid out as
-    :func:`empty_out` says.
+    :func:`empty_out` says.  The kernel's limits (``block_k`` <=
+    MAX_BLOCK_K, D <= MAX_D) hold on the CPU too, so that a plan the host
+    rehearses is one the card runs.
     """
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
@@ -121,10 +159,15 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, Hkv={hkv}")
     if block_k <= 0 or lk % block_k:
         raise ValueError(f"block_k={block_k} does not divide Lk={lk}")
+    if block_k > MAX_BLOCK_K or d > MAX_D:
+        raise ValueError(f"lut_attention kernel takes block_k <= "
+                         f"{MAX_BLOCK_K} and D <= {MAX_D}, got block_k="
+                         f"{block_k}, D={d}")
     st_q, st_k, st_v = strides(q, "q"), strides(k, "k"), strides(v, "v")
     if not _launch.on_cuda(q, "lut_attention"):
-        return ref.lut_attention(q, k, v, causal=causal, scale=scale,
-                                 softmax_mode="lut" if use_lut else "exact")
+        return ref.lut_attention_tiled(q, k, v, causal=causal,
+                                       use_lut=use_lut, scale=scale,
+                                       block_k=block_k)
     dt = q.dtype
     if (dt is not torch.float32 and dt is not torch.bfloat16) or \
             k.dtype is not dt or v.dtype is not dt:
@@ -134,10 +177,6 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     idx = q.get_device()
     if k.get_device() != idx or v.get_device() != idx:
         raise RuntimeError("lut_attention: operands on different devices")
-    if block_k > MAX_BLOCK_K or d > MAX_D:
-        raise ValueError(f"lut_attention kernel takes block_k <= "
-                         f"{MAX_BLOCK_K} and D <= {MAX_D}, got block_k="
-                         f"{block_k}, D={d}")
     if max(st_q + st_k + st_v) > _INT32_MAX:
         raise ValueError("lut_attention: a stride exceeds int32")
     global launches

@@ -37,6 +37,7 @@ from repro_torch.kernels import int8_matmul as _mm
 from repro_torch.kernels import lut_attention as _attn
 from repro_torch.kernels import lut_gelu as _gelu
 from repro_torch.kernels import lut_softmax as _sm
+from repro_torch.kernels import ref as _ref
 from repro_torch.perf import cost as _cost
 
 _KERNEL_MODULES = {"lut_softmax": _sm, "lut_gelu": _gelu, "int8_matmul": _mm,
@@ -219,14 +220,31 @@ def int8_matmul_raw(x_int: torch.Tensor, w_int: torch.Tensor, *,
     return _mm.int8_matmul_raw(x_int, w_int, shift=shift, out_int16=out_int16)
 
 
+def attention_block_k(lk: int) -> int:
+    """The reference's key tile for ``lk`` keys, ``fit_block(lk, 128)``:
+    the online rescale is a LUT probe, so the attention's result depends
+    on where the tiles end."""
+    return fit_block(lk, ATTN_BLOCK_K)
+
+
+def lut_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """The attention kernel's plain version (``ref.lut_attention_tiled``,
+    LUT mode) at the reference's key tile, on any device: the flash-LUT
+    attention of every plan but ``cuda``.  Launches nothing."""
+    return _ref.lut_attention_tiled(q, k, v, causal=causal, use_lut=True,
+                                    scale=scale,
+                                    block_k=attention_block_k(k.shape[2]))
+
+
 def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, use_lut: bool = True,
                   scale: float | None = None) -> torch.Tensor:
     """Flash attention with LUT-exp softmax; [B,H,L,D] GQA layout.
 
-    The key tile is the reference's, ``fit_block(Lk, 128)``: the online
-    rescale is a LUT probe, so the result depends on where the tiles end.
-    The reference's query tile ``fit_block(Lq, 128)`` changes no result
+    The key tile is the reference's (:func:`attention_block_k`).  The
+    reference's query tile ``fit_block(Lq, 128)`` changes no result
     (query rows are independent) and is left to the kernel.
     """
     for t in (q, k, v):
@@ -234,7 +252,7 @@ def lut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
     call = _attn.lut_attention
-    block_k = fit_block(k.shape[2], ATTN_BLOCK_K)
+    block_k = attention_block_k(k.shape[2])
     if _walk.recorder is not None:
         b, hq, lq, _ = q.shape
         launch = ("lut_attention", (b, hq, k.shape[1], lq, k.shape[2], d,

@@ -173,6 +173,9 @@ def lut_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``exp(-z)``.  ``alpha`` is itself a 1/32-bin probe, so the result
     depends on ``block_k``: where the keys are several tiles it differs
     from :func:`lut_attention`'s single softmax by up to a few 1e-3.
+    Each tile's ``sum p`` is taken in float64 and rounded once: the
+    products then agree with the reference kernel's bit for bit more
+    often (tests/test_torch_flash_parity.py).
     """
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
@@ -203,7 +206,8 @@ def lut_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = exp_neg(m_new - s)
         p = torch.where(valid if causal else s > _NEG / 2, p, 0.0)
         alpha = exp_neg(m_new - m)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        l = alpha * l + p.sum(dim=-1, keepdim=True,
+                              dtype=torch.float64).to(torch.float32)
         acc = alpha * acc + torch.einsum("bhgqk,bhkd->bhgqd", p,
                                          vf[:, :, kt:kt + block_k])
         m = m_new

@@ -173,7 +173,9 @@ def he(generator, shape, scale, dtype, device="cpu"):
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * (scale / np.sqrt(fan_in))).to(dtype).to(device)
+    # scaled in place: one float32 copy of a leaf at a time (nemotron's
+    # embed is 18.9 GB in float32)
+    return w.mul_(scale / np.sqrt(fan_in)).to(dtype).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -492,19 +494,19 @@ def _flash(q, k, v, cfg, causal):
     kernel reads them where they lie and lays its output out so that the
     transpose back and the reshape after it are views too.  The cuda plan
     launches the kernel (kernels.ops); every other plan takes its plain
-    version, so a launch counter counts the cuda plan only.  The kernel
-    takes one dtype for q, k and v (qk-norm may leave v wider)."""
+    version at the same key tiles, so a launch counter counts the cuda
+    plan only.  The kernel takes one dtype for q, k and v (qk-norm may
+    leave v wider)."""
     if not (q.dtype == k.dtype == v.dtype):
         dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
                                  v.dtype)
         q, k, v = q.to(dt), k.to(dt), v.to(dt)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    from repro_torch.kernels import ops
     if cfg.act_approx == "cuda":
-        from repro_torch.kernels import ops
         out = ops.lut_attention(qh, kh, vh, causal=causal)
     else:
-        from repro_torch.kernels import ref
-        out = ref.lut_attention(qh, kh, vh, causal=causal, softmax_mode="lut")
+        out = ops.lut_attention_plain(qh, kh, vh, causal=causal)
     return out.transpose(1, 2)
 
 

@@ -18,6 +18,11 @@ from repro_torch.core.tree import tree_leaves, tree_map
 
 Pytree = Any
 
+# elements of a leaf one quantiser pass takes: a larger leaf is cast in
+# slices of its last (output-channel) axis, so the cast's float32
+# temporaries stay near 1 GiB (nemotron-4-340b's embed is 4.7 G elements)
+CHUNK_ELEMS = 1 << 28
+
 
 def po2_fake_quant(w: torch.Tensor, weight_exponent, *, bits: int = 8,
                    rounding: str = "nearest", per_channel: bool = False):
@@ -141,17 +146,35 @@ class QuantRecipe:
         return not (self.skip_norm_scales and leaf.ndim <= 1)
 
     def _quantize_leaf(self, w: torch.Tensor) -> quant.QTensor:
-        if not self.per_channel or w.ndim < 2:
+        per_channel = self.per_channel and w.ndim >= 2
+        if not per_channel and w.numel() <= CHUNK_ELEMS:
             return quant.quantize_po2(w, self.weight_exponent, bits=self.bits,
                                       rounding=self.rounding)
-        _, q, extra, _ = po2_fake_quant(
-            w, self.weight_exponent, bits=self.bits, rounding=self.rounding,
-            per_channel=True)
+        # the cast is elementwise and a channel's exponent reads its own
+        # column only, so slices of the last axis give the whole's bits
+        cols = w.shape[-1]
+        step = max(1, CHUNK_ELEMS // max(1, w.numel() // cols))
+        grids, extras = [], []
+        for c0 in range(0, cols, step):
+            part = w[..., c0:c0 + step]
+            if per_channel:
+                _, q, extra, _ = po2_fake_quant(
+                    part, self.weight_exponent, bits=self.bits,
+                    rounding=self.rounding, per_channel=True)
+                # per-channel refinements are clipped to [-12, 12], so
+                # one int8 per output channel stores them exactly
+                extras.append(extra.to(torch.int8))
+                grids.append(q.to(quant.storage_dtype(self.bits)))
+            else:
+                grids.append(quant.quantize_po2(
+                    part, self.weight_exponent, bits=self.bits,
+                    rounding=self.rounding).int_values())
+        q = grids[0] if len(grids) == 1 else torch.cat(grids, dim=-1)
         # dtype-true storage through the shared codec (nibble-packed below
-        # 5 bits); per-channel refinements are clipped to [-12, 12] so one
-        # int8 per output channel stores them exactly.
-        return quant.QTensor.store(q, self.weight_exponent, bits=self.bits,
-                                   axis_exponents=extra.to(torch.int8))
+        # 5 bits)
+        return quant.QTensor.store(
+            q, self.weight_exponent, bits=self.bits,
+            axis_exponents=torch.cat(extras) if extras else None)
 
     def fake_quant_leaf(self, w: torch.Tensor, weight_exponent=None):
         """(fq, unsat) for one weight leaf — the QAT forward-pass values.

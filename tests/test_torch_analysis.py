@@ -403,12 +403,27 @@ def test_geometry_mirrors_pick_the_launchers_paths():
     assert code == 0 and variant > 100 and threads == 256
     assert int8_matmul.geometry(0, 0, 0, 0, 12, 8, 0, sms=132,
                                 occupancy=_model) == (0, (0, 0, 0, 0))
-    # the attention refuses D > 128
-    assert lut_attention.geometry(1, 1, 1, 8, 8, 192, 8, sms=132,
+    # the attention refuses D > 256
+    assert lut_attention.geometry(1, 1, 1, 8, 8, 257, 8, sms=132,
                                   occupancy=_model)[0] == 1
     code, (grid, threads, smem, variant) = lut_attention.geometry(
         2, 16, 8, 1024, 1024, 128, 128, sms=132, occupancy=_model)
     assert code == 0 and smem <= geometry.MAX_SMEM and variant % 10 == 1
+
+
+@pytest.mark.parametrize("bk, want", [
+    # nemotron-4-340b's causal GQA at key tiles of 128: 4 row groups of two
+    # warps a block, 16 query-row splits a head, one block an SM walking
+    # the 3072 items
+    (128, (132, 256, (320 + 4 * 16 * 196 + 128 * 196) * 4, 24161)),
+    # key tiles of 4 keys: 4 fragments of 8 keys
+    (4, (132, 256, (320 + 4 * 16 * 196 + 32 * 196) * 4, 24041))])
+def test_attention_geometry_at_head_dim_192(bk, want):
+    """D = 192 takes the wide kernel (DT 24): one stage, the tile's K and V
+    in turns in one buffer, within the 227 KB a block may use."""
+    code, geo = lut_attention.geometry(2, 96, 8, 1024, 1024, 192, bk,
+                                       sms=132, occupancy=_model)
+    assert code == 0 and geo == want and geo[2] <= geometry.MAX_SMEM
 
 
 def test_h100_occupancy_model():

@@ -69,7 +69,6 @@ from repro_torch.configs import registry as tregistry
 from repro_torch.core import quant as tquant
 from repro_torch.core.tree import tree_leaves_sorted, tree_map
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import encdec as TE
@@ -464,18 +463,10 @@ def test_decode_state_is_written_in_place(plan):
 # the flash-LUT encoder
 # ---------------------------------------------------------------------------
 
-def _tiled_plain(q, k, v, *, causal=True, softmax_mode="lut", scale=None):
-    """The kernel's online softmax over its own key tiles, in the plain
-    version's place."""
-    return tref.lut_attention_tiled(
-        q, k, v, causal=causal, use_lut=softmax_mode == "lut", scale=scale,
-        block_k=tops.fit_block(k.shape[2], tops.ATTN_BLOCK_K))
-
-
 @pytest.mark.parametrize("plan", ["lut", "cuda"])
 def test_flash_lut_encoder_one_key_tile(plan):
-    """``enc_seq`` 16 is one key tile: the port's plain version (one
-    softmax) and the reference's kernel agree to float rounding."""
+    """``enc_seq`` 16 is one key tile: the port's plain version and the
+    reference's kernel agree to float rounding."""
     jcfg, tcfg, jp, tp = _setup()
     jc, tc = _exec_cfgs(jcfg, tcfg, plan, attention="flash_lut")
     assert tops.fit_block(tcfg.enc_seq, tops.ATTN_BLOCK_K) == tcfg.enc_seq
@@ -486,7 +477,7 @@ def test_flash_lut_encoder_one_key_tile(plan):
     _close(got, want, FLOAT_ATOL, f"{plan} flash_lut memory")
 
 
-def test_flash_lut_key_tile_4_matches_pallas_kernel(monkeypatch):
+def test_flash_lut_key_tile_4_matches_pallas_kernel():
     """``enc_seq`` 132: key tiles of 4, the card's at 1500.  A layer's
     real q/k/v through the plain tiled version and the reference's kernel
     (interpret mode); then the whole encoder, the port with the kernel's
@@ -505,14 +496,13 @@ def test_flash_lut_key_tile_4_matches_pallas_kernel(monkeypatch):
         q, k, v = ((TL.linear(hn, bp["attn"]["w" + n], "bsd,df->bsf")
                     + bp["attn"]["b" + n]).reshape(B, 132, h, dh)
                    .transpose(1, 2) for n in "qkv")
-        got = _tiled_plain(q, k, v, causal=False)
+        got = tops.lut_attention_plain(q, k, v, causal=False)
     want = np.asarray(jops.lut_attention(
         *(jnp.asarray(t.contiguous().numpy()) for t in (q, k, v)),
         causal=False, interpret=True))
     diff = np.abs(got.numpy() - want)
     assert diff.max() <= ATTN_LUT_ATOL
     assert (diff <= ATTN_ATOL).mean() >= ATTN_SHARE
-    monkeypatch.setattr(tref, "lut_attention", _tiled_plain)
     jm = JE.encode(jp, jnp.asarray(frames), jc)
     with torch.inference_mode():
         tm = TE.encode(tp, _t(frames), tc)
