@@ -409,7 +409,11 @@ quickest proof that the port still builds and starts there:
                        alignment), held to its kernel's C geometry query:
                        each wrapper's Python mirror (``geometry``) gives
                        the launcher's grid, threads, shared memory and
-                       variant, with the card's occupancy, at every shape.
+                       variant, with the card's occupancy, at every shape;
+                       at every wide attention launch the mirror's
+                       (item, key tile) steps (``lut_attention.tile_steps``)
+                       equal those of the kernel's own item order
+                       (``lut_attention_wide_steps``).
                        The log is off in every other phase and inside
                        every timing, so no timed launch pays for it.
 25. ``mesh``           the sharded step (ROADMAP A4.2 / A4.3) on a one-rank
@@ -471,8 +475,16 @@ quickest proof that the port still builds and starts there:
    causal GQA attention ``(2, 96, 8, 1024, 1024, 192)`` in float32 and
    bf16, and the wide attention's edges at D of 136, 192, 200 and 256
    (key tiles of 4, 32 and 128, one query, causal and not, LUT and
-   exact).  Each attention row carries its launch geometry, the kernel
-   instance included.
+   exact; causal Lq < Lk with a last block past Lq, and Lq > Lk, whose
+   first rows see no key and must be 0; depths of 131 and 250, off the
+   16-byte vectors).  Each attention row carries its launch geometry,
+   the kernel instance included, and a wide row ``tile_steps``: the
+   (item, key tile) steps its blocks walk, those of a walk over every
+   tile and the busiest block's, walked on the host by the kernel's own
+   item order (``lut_attention_wide_steps``; the wide kernel skips the
+   tiles a causal block cannot see).  Phase 2 reports ptxas' registers,
+   spills and stack of each of the wide kernel's eight instances
+   (``wide_attention``) and fails without them.
 
 The serve phases (5, 6), the stream phases (7, 8), the cell phases (9, 10),
 the train phases (11, 12), the LM server with its ``flash_lut`` forward
@@ -514,11 +526,17 @@ kernel's input was just written by the op before it).
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over the peak for their type
 (1978.9 TOP/s int8 for the matmul's multiply-adds, 67 TFLOP/s for the
-elementwise float32/int32 work and the attention's float32 products,
-4 * B * H * Lq * Lk * D), the published rates of an H100 SXM at its full
-700 W limit (``repro_torch.perf.roofline``'s ``H100_*`` constants beside
-``H100``; the per-element operation counts of the softmax and the GELU
-are ``repro_torch.perf.cost``'s).
+elementwise float32/int32 work; the attention's products, 2 * B * H * D
+operations a (query, key) pair the mask lets through for each of QK^T
+and P.V, at a third of the TF32 tensor-core rate, 164.9 TFLOP/s — both
+kernels take float32 products as 3xTF32 — but in bf16 QK^T at the bf16
+rate, exact products, and P.V at a third of it, 329.8 TFLOP/s (p in
+three bf16 parts); each attention row also gives the bytes alone,
+``bytes_bound_ms``, and both shares of ``device_ms``), the published
+rates of an H100 SXM at its full 700 W limit
+(``repro_torch.perf.roofline``'s ``H100_*`` constants beside ``H100``;
+the per-element operation counts of the softmax and the GELU are
+``repro_torch.perf.cost``'s).
 """
 
 from __future__ import annotations
@@ -533,6 +551,7 @@ import importlib
 import io
 import json
 import os
+import re
 import statistics
 import tempfile
 import subprocess
@@ -561,6 +580,7 @@ from repro_torch.analysis.__main__ import main as analysis_cli  # noqa: E402
 from repro_torch.dist import compress  # noqa: E402
 from repro_torch.kernels import _launch as kernel_launch  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import lut_attention as lut_attn  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -588,6 +608,8 @@ HBM_BYTES_PER_S = roofline.H100_HBM_BW
 INT8_OPS_PER_S = roofline.H100_PEAK_OPS_INT8
 F32_OPS_PER_S = roofline.H100_PEAK_FLOPS_FP32
 BF16_OPS_PER_S = roofline.H100_PEAK_FLOPS_BF16
+# float32 products to float32 accuracy on the tensor cores: 3xTF32
+TF32X3_OPS_PER_S = roofline.H100_PEAK_FLOPS_TF32 / 3
 SOFTMAX_OPS_PER_ELEM = perf_cost.SOFTMAX_OPS_PER_ELEM   # fixed, float
 GELU_OPS_PER_ELEM = perf_cost.GELU_OPS_PER_ELEM         # nearest, interp
 
@@ -760,19 +782,60 @@ def phase_device() -> dict:
     return info
 
 
+def wide_instances(lines) -> list:
+    """ptxas' report (``-Xptxas -v``) of each instance of the wide
+    attention kernel (``attn_wide_kernel<DT, NT, bf16>``): registers,
+    spill stores and loads, stack frame and static shared memory, in
+    bytes."""
+    out, cur = [], None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            w = re.search(r"attn_wide_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                          m.group(1))
+            cur = None
+            if w:
+                dtype = "bf16" if w.group(3) == "1" else "float32"
+                cur = {"kernel": f"attn_wide_kernel<{w.group(1)}, "
+                                 f"{w.group(2)}, {dtype}>"}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur.update(registers=int(m.group(1)),
+                       smem_static=int(sm.group(1)) if sm else 0)
+            cur = None
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     build.load()
     log = build.build_dir() / "build.log"
-    used = [ln.strip() for ln in log.read_text().splitlines()
-            if "Used" in ln and "registers" in ln] if log.exists() else []
+    lines = log.read_text().splitlines() if log.exists() else []
+    used = [ln.strip() for ln in lines
+            if "Used" in ln and "registers" in ln]
+    wide = wide_instances(lines)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "nvcc_seconds": None if build.build_seconds is None
           else round(build.build_seconds, 2),
           "library": str(build.build_dir() / "libkernels.so"),
           "sources": [str(s.relative_to(Path(__file__).resolve().parent))
                       for s in build.sources()],
-          "ptxas": used})
+          "wide_attention": wide, "ptxas": used})
+    if not log.exists():
+        raise AssertionError(f"no ptxas report at {log}")
+    if len(wide) != 8:
+        raise AssertionError(f"ptxas reported {len(wide)} instances of "
+                             "attn_wide_kernel, not 8")
 
 
 # ---------------------------------------------------------------------------
@@ -1034,6 +1097,10 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
         raise AssertionError(f"{what}: max abs err {err}, share within "
                              f"1e-5 {share} (tiled version), max abs err "
                              f"{oracle_err} (oracle)")
+    # causal with Lq > Lk: the first Lq - Lk rows see no key, and are 0
+    unseen = max(0, lq - lk) if causal else 0
+    if unseen and bool(got[:, :, :unseen].any()):
+        raise AssertionError(f"{what}: a row that sees no key is not 0")
     row = {"variant": mode + (" causal" if causal else "")
            + (" strided" if strided else ""),
            "dtype": str(dtype).split(".")[1], "shape_bhhlld": list(shape),
@@ -1043,6 +1110,15 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
                "lut_attention", (b, hq, hkv, lq, lk, d, block_k))[1],
            "max_abs_err": err, "within_1e-5": share,
            "oracle_max_abs_err": oracle_err}
+    if unseen:
+        row["rows_seeing_no_key"] = unseen
+    if d > lut_attn.NARROW_D:
+        # the wide kernel's (item, key tile) steps: those its blocks walk,
+        # those of a walk over every tile, the busiest block's, by the
+        # kernel's own item order (phase geometry_mirror holds the Python
+        # mirror to it)
+        row["tile_steps"] = an_geometry.c_wide_steps(
+            (b, hq, hkv, lq, lk, d, block_k, int(causal)))
     del got, want, oracle, diff
     if timed:
         nbytes = q.element_size() * (2 * b * hq * lq * d + 2 * b * hkv * lk * d) \
@@ -1051,14 +1127,17 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
         # (queries right-aligned) query i sees min(lk, i + 1 + lk - lq) keys
         pairs = lq * lk if not causal else sum(
             max(0, min(lk, i + 1 + lk - lq)) for i in range(lq))
-        # QK^T and P.V, 2 * d operations a pair each: bf16 q and k multiply
+        # QK^T and P.V, 2 * d operations a pair each.  float32 products
+        # are taken to float32 accuracy on the tensor cores as 3xTF32 (both
+        # kernels): a third of the TF32 rate.  bf16 q and k multiply
         # exactly with a float32 sum, so QK^T may run at the bf16 rate;
-        # P is float32, so P.V runs at the float32 rate
-        qk_rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else \
-            F32_OPS_PER_S
+        # P.V keeps p at float32 accuracy against bf16 v, p = hi + mid +
+        # lo in three bf16 products (the wide kernel): a third of it
+        bf16 = q.dtype == torch.bfloat16
+        qk_rate = BF16_OPS_PER_S if bf16 else TF32X3_OPS_PER_S
+        pv_rate = BF16_OPS_PER_S / 3 if bf16 else TF32X3_OPS_PER_S
         pv = 2.0 * b * hq * pairs * d
-        b_ms, by = bound(nbytes, pv * (1.0 + F32_OPS_PER_S / qk_rate),
-                         F32_OPS_PER_S)
+        b_ms, by = bound(nbytes, pv * (1.0 + pv_rate / qk_rate), pv_rate)
         numel = b * hq * lq * lk
         row["pairs_per_head"] = pairs
 
@@ -1073,6 +1152,9 @@ def check_attention(dev, gen, shape, causal, use_lut, *, dtype=torch.float32,
             lambda: ref.lut_attention_tiled(q, k, v, causal=causal,
                                             use_lut=use_lut, block_k=block_k),
             lambda: sdpa(q, k, v, is_causal=causal), numel))
+        # the shares of the device time that the two bounds are
+        row.update(bound_share=b_ms / row["device_ms"],
+                   bytes_bound_share=row["bytes_bound_ms"] / row["device_ms"])
     return row
 
 
@@ -1383,6 +1465,42 @@ def lm_kernel_rows(dev, gen, rows) -> None:
 NEMOTRON_EDGE_D = (136, 192, 200, 256)
 NEMOTRON_EDGE_SHAPES = ((2, 4, 2, 64, 132), (2, 4, 2, 64, 160),
                         (2, 4, 2, 64, 256), (16, 8, 2, 1, 256))
+# and the causal skip's edges: Lq < Lk with the last block of rows partly
+# past Lq, and Lq > Lk, whose first 128 rows see no key (their output is 0)
+NEMOTRON_EDGE_CAUSAL = ((2, 4, 2, 200, 256), (2, 4, 2, 256, 128))
+# depths off the 16-byte vectors, one a build (DT 24, 32): the wide
+# kernel's element-wise staging and output stores
+NEMOTRON_EDGE_ODD_D = (131, 250)
+# bf16 at ragged depths (Q's depth past D is zero in shared memory) where
+# each block takes several items, the last split's rows partly past Lq in
+# the second
+NEMOTRON_EDGE_ITEMS = ((2, 96, 8, 256, 256), (2, 96, 8, 200, 256))
+NEMOTRON_EDGE_ITEMS_D = (136, 200)
+
+
+def nemotron_edge_cases():
+    """The wide kernel's edge rows, ``(shape, causal, use_lut, dtype,
+    strided)`` with ``shape`` = (b, hq, hkv, lq, lk, d), in the order the
+    kernel phase draws their inputs: new cases go last, so that earlier
+    rows keep their draws (a row of 128 queries loses 0.8 % of its share
+    for each query a LUT bin moves, PERF.md)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for d in NEMOTRON_EDGE_D:
+        for edge in NEMOTRON_EDGE_SHAPES:
+            for causal, use_lut in ((True, True), (False, True),
+                                    (False, False)):
+                yield (*edge, d), causal, use_lut, f32, edge[3] > 1
+        yield (2, 4, 2, 64, 256, d), True, True, bf16, False
+    for d in NEMOTRON_EDGE_D:
+        for edge in NEMOTRON_EDGE_CAUSAL:
+            for use_lut, dtype in ((True, f32), (False, f32), (True, bf16)):
+                yield (*edge, d), True, use_lut, dtype, True
+    for d in NEMOTRON_EDGE_ODD_D:
+        for use_lut, dtype in ((True, f32), (False, f32), (True, bf16)):
+            yield (2, 4, 2, 64, 256, d), True, use_lut, dtype, True
+    for d in NEMOTRON_EDGE_ITEMS_D:
+        for edge in NEMOTRON_EDGE_ITEMS:
+            yield (*edge, d), True, True, bf16, True
 
 
 def nemotron_kernel_rows(dev, gen, rows) -> None:
@@ -1390,8 +1508,7 @@ def nemotron_kernel_rows(dev, gen, rows) -> None:
     at LM_HEAD_ROWS, per channel, float32 and bf16 activations; the causal
     GQA attention ``(2, 96, 8, 1024, 1024, 192)`` on strided views,
     float32 and bf16, timed; and the wide kernel's edges
-    (NEMOTRON_EDGE_*), causal and not, LUT and exact, with bf16 at each
-    depth."""
+    (:func:`nemotron_edge_cases`)."""
     cfg = registry.get(NEMOTRON_NAME).config
     for m in LM_HEAD_ROWS:
         for x_dtype in (torch.float32, torch.bfloat16):
@@ -1409,16 +1526,9 @@ def nemotron_kernel_rows(dev, gen, rows) -> None:
                             timed=True, strided=True)
         rows["lut_attention"].append({**r, "model": NEMOTRON_NAME,
                                       "batch": shape[0]})
-    for d in NEMOTRON_EDGE_D:
-        for edge in NEMOTRON_EDGE_SHAPES:
-            for causal, use_lut in ((True, True), (False, True),
-                                    (False, False)):
-                rows["lut_attention"].append(check_attention(
-                    dev, gen, (*edge, d), causal, use_lut,
-                    strided=edge[3] > 1))
+    for shape, causal, use_lut, dtype, strided in nemotron_edge_cases():
         rows["lut_attention"].append(check_attention(
-            dev, gen, (2, 4, 2, 64, 256, d), True, True,
-            dtype=torch.bfloat16))
+            dev, gen, shape, causal, use_lut, dtype=dtype, strided=strided))
 
 
 def whisper_kernel_rows(dev, gen, rows) -> None:
@@ -5140,7 +5250,8 @@ TIMED_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
 EXTRA_KEYS = ("bytes_bound_ms", "input", "library_call", "int_mm_ms",
               "int_mm_device_ms", "int_mm_error", "f32_matmul_ms",
               "f32_matmul_device_ms", "bf16_matmul_ms",
-              "bf16_matmul_device_ms", "pairs_per_head")
+              "bf16_matmul_device_ms", "pairs_per_head", "tile_steps",
+              "bound_share", "bytes_bound_share")
 LM_ROW_KEYS = ("variant", "tag", "batch", "shape", "shape_mkn",
                "shape_bhhlld", "block_k", "geometry", "within_1e-5",
                "oracle_max_abs_err",
@@ -5644,16 +5755,33 @@ def phase_geometry_mirror(dev) -> None:
     """Phase 24: every launch of this run against its kernel's C query."""
     t0 = time.perf_counter()
     rows = an_geometry.check_launch_log(GEO_LOG, dev)
+    # the wide attention's launches among them (D > 128): every one is
+    # held like the rest, and its (item, key tile) steps, the mirror's
+    # (lut_attention.tile_steps) against the kernel's own item order's
+    wide = {tuple(a[5:13]) for e, a in GEO_LOG
+            if e == "lut_attention_launch" and a[10] > lut_attn.NARROW_D}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    steps_apart = []
+    for args in sorted(wide):
+        c = an_geometry.c_wide_steps(tuple(int(x) for x in args))
+        m = lut_attn.tile_steps(*args[:7], bool(args[7]), sms=sms,
+                                occupancy=an_geometry.card_occupancy)
+        if c != m:
+            steps_apart.append({"args": list(args), "c": c, "mirror": m})
     out = {"phase": "geometry_mirror",
            "kernels": {k: {"shapes": v["shapes"],
                            "mismatches": len(v["mismatches"])}
                        for k, v in rows.items()},
+           "wide_attention_shapes": len(wide),
+           "wide_tile_steps_apart": len(steps_apart),
            "seconds": time.perf_counter() - t0}
     emit(out)
     bad = {k: v["mismatches"][:3] for k, v in rows.items() if v["mismatches"]}
-    if bad or set(rows) != set(SOURCES):
-        raise AssertionError(f"geometry mirror != C query: {bad}, kernels "
-                             f"{sorted(rows)}")
+    if bad or steps_apart or set(rows) != set(SOURCES) or not wide:
+        raise AssertionError(f"geometry mirror != C query: {bad}, tile "
+                             f"steps {steps_apart[:3]}, kernels "
+                             f"{sorted(rows)}, {len(wide)} wide attention "
+                             "shapes")
 
 
 def kernels_line(rows: dict, launches: dict, expected: dict,

@@ -116,6 +116,18 @@ def c_query(kernel: str, args: tuple) -> tuple:
     return code, tuple(int(v) for v in out)
 
 
+def c_wide_steps(args: tuple) -> dict:
+    """The wide attention kernel's (item, key tile) steps at
+    ``lut_attention_wide_steps``' arguments ``(b, hq, hkv, lq, lk, d,
+    block_k, causal)``, walked on the host by the kernel's own item order
+    (on the card): ``walked``, ``full`` (every tile) and ``busiest``."""
+    from repro_torch.kernels import build
+    out = (ctypes.c_longlong * 3)()
+    code = build.load().lut_attention_wide_steps(*args, out)
+    build.check(code, "lut_attention_wide_steps")
+    return dict(zip(("walked", "full", "busiest"), (int(v) for v in out)))
+
+
 def _al(ptr) -> int:
     """An address by what the launchers read of it: its offset into a
     16-byte unit (none needs more)."""

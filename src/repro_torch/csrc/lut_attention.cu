@@ -63,11 +63,9 @@
 //   conflicts.  A block walks several (head, split) items, and key tiles,
 //   with a ring of two stages: the next tile is in flight while it computes
 //   this one.
-// - Above D = 128, up to D = 256 (lut_attention_wide.cu): two warps share
-//   each 16 query rows, each keeping half the output depth, and a tile's K
-//   and V take turns in one shared buffer.  The two sources share
-//   lut_attention_tile.cuh: one key tile's products, softmax step and
-//   epilogue are the same code in both kernels.
+// - Above D = 128, up to D = 256, lut_attention_wide.cu: its own design
+//   (its header comment), sharing lut_attention_tile.cuh's arguments,
+//   3xTF32 split, LUT probe and epilogue with this kernel.
 // - Ragged edges are masked in the kernel, never padded in device memory:
 //   key tiles of any width (a partial fragment of 8 keys), D not a multiple
 //   of 8, Lq of 1, and GQA by h / (Hq / Hkv).  The pads of shared memory

@@ -1,10 +1,11 @@
 // What the two flash-LUT attention sources share: lut_attention.cu (the
 // kernel for D <= 128, the entry points, and what both kernels compute)
-// and lut_attention_wide.cu (the kernel for 128 < D <= 256).  The launch
-// arguments, the 3xTF32 products, the LUT probe, the staging of rows into
-// shared memory, and one key tile's QK^T, online softmax step, P V and
-// epilogue.  Two sources so that nvcc builds the two kernels' instances
-// at once.
+// and lut_attention_wide.cu (the kernel for 128 < D <= 256).  Both use the
+// launch arguments, the 3xTF32 products, the copies, the quad reductions,
+// the LUT probe, the epilogue, the SM count and the occupancy query; the
+// staging of rows and one key tile's QK^T, online softmax step and P V
+// below are lut_attention.cu's.  Two sources so that nvcc builds the two
+// kernels' instances at once.
 #pragma once
 
 #include <cuda_bf16.h>

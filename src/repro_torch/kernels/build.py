@@ -59,6 +59,9 @@ SIGNATURES = {
     "int8_matmul_geometry": (_P, _P, _P, _I, _I, _I, _I, _P),
     # b, hq, hkv, lq, lk, d, block_k, out4
     "lut_attention_geometry": (_I,) * 7 + (_P,),
+    # b, hq, hkv, lq, lk, d, block_k, causal, out3: the wide kernel's
+    # (item, key tile) steps walked, of a full walk, of the busiest block
+    "lut_attention_wide_steps": (_I,) * 8 + (_P,),
     # blocks an SM holds, as each launcher asks it: g, vpl, fixed
     "lut_softmax_occupancy": (_I, _I, _I),
     # kloop, qf, bytes

@@ -34,14 +34,36 @@ def _smem_floats(stages: int, wpb: int, nt: int, srow: int) -> int:
     return _ENTRIES + stages * wpb * 16 * srow + stages * 2 * nt * 8 * srow
 
 
+# csrc/lut_attention_wide.cu: the table and the row maxima ahead of Q
+_WIDE_HEAD_BYTES = (_ENTRIES + _MAX_WARPS * 16) * 4
+
+
+def _wide_ring(dt: int, nt: int) -> tuple:
+    """(ring slots, bytes a slot) of the wide instance (its ``Ring`` and
+    ``slot_bytes``): tiles of <= 32 keys in chunks of 32 through 4 slots;
+    tiles of <= 128 in chunks of 64 float32 or 128 bf16 keys through 3
+    slots at D <= 192 and 2 at D <= 256; a slot holds the larger chunk of
+    the two dtypes."""
+    stages = 4 if nt <= 4 else (3 if dt <= 24 else 2)
+    f32 = (32 if nt <= 4 else 64) * (dt * 8 + 4) * 4
+    bf16 = (32 if nt <= 4 else 128) * (dt * 8 + 8) * 2
+    return stages, max(f32, bf16)
+
+
+def _wide_smem_bytes(gpb: int, dt: int, nt: int) -> int:
+    stages, slot = _wide_ring(dt, nt)
+    return _WIDE_HEAD_BYTES + gpb * 16 * (dt * 8 + 4) * 4 + stages * slot
+
+
 def _wide_geometry(pairs: int, lq: int, d: int, bk: int, sms: int,
                    occupancy) -> tuple:
-    """``launch_wide``'s choice (D > 128): one stage, two warps a group of
-    16 query rows, at most 4 groups a block, halved while an SM holds no
-    block."""
+    """``launch_wide``'s choice (D > 128): two warps a group of 16 query
+    rows (they split each chunk's keys), at most 4 groups a block, halved
+    while an SM holds no block; K and V through a ring of chunks
+    (:func:`_wide_ring`).  The geometry is the same for float32 and bf16
+    (bf16 uses part of the shared memory)."""
     dt = 24 if d <= 192 else 32
     nt = 4 if bk <= 32 else 16
-    srow = dt * 8 + 4
     groups = -(-lq // 16)
     splits = 1 if pairs >= 2 * sms else -(-(2 * sms) // pairs)
     splits = min(max(splits, 1), groups)
@@ -52,7 +74,7 @@ def _wide_geometry(pairs: int, lq: int, d: int, bk: int, sms: int,
         if items > _INT32_MAX:
             return 1, (0, 0, 0, 0)
         threads = 64 * gpb
-        nbytes = (_ENTRIES + gpb * 16 * srow + nt * 8 * srow) * 4
+        nbytes = _wide_smem_bytes(gpb, dt, nt)
         bps = occupancy(("lut_attention", dt, nt), threads, nbytes) \
             if nbytes <= _MAX_SMEM else 0
         if bps <= 0:
@@ -61,7 +83,59 @@ def _wide_geometry(pairs: int, lq: int, d: int, bk: int, sms: int,
             gpb = (gpb + 1) // 2
             continue
         return 0, (min(items, bps * sms), threads, nbytes,
-                   (dt * 100 + nt) * 10 + 1)
+                   (dt * 100 + nt) * 10 + _wide_ring(dt, nt)[0])
+
+
+def item_tiles(lq: int, lk: int, bk: int, rows: int, splits: int,
+               causal: bool) -> list:
+    """The key tiles each of a head's ``splits`` items (blocks of ``rows``
+    query rows) walks in the wide kernel: under a causal mask up to the
+    last row's last key, ``(r_last + lk - lq) // bk``, and one fully
+    masked tile where no row sees a key; else every tile."""
+    tiles = lk // bk
+    out = []
+    for sp in range(splits):
+        last = min(sp * rows + rows, lq) - 1 + lk - lq
+        out.append((1 if last < 0 else min(tiles, last // bk + 1))
+                   if causal else tiles)
+    return out
+
+
+def tile_steps(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, bk: int,
+               causal: bool, *, sms: int, occupancy) -> dict:
+    """The wide kernel's (item, key tile) steps of a launch (D > 128), from
+    the geometry mirror: ``walked`` those its blocks take, ``full`` those
+    of a walk over every tile, ``busiest`` the most one block takes (its
+    items dealt in a snake over the grid, the longest first).  Its C twin,
+    ``lut_attention_wide_steps``, walks the kernel's own item order."""
+    if d <= NARROW_D:
+        raise ValueError(f"tile_steps: the wide kernel takes D > {NARROW_D}")
+    code, (grid, threads, _, _) = geometry(b, hq, hkv, lq, lk, d, bk,
+                                           sms=sms, occupancy=occupancy)
+    if code:
+        raise ValueError("tile_steps: the launcher refuses "
+                         f"{(b, hq, hkv, lq, lk, d, bk)}")
+    if grid == 0:
+        return {"walked": 0, "full": 0, "busiest": 0}
+    pairs, tiles = b * hq, lk // bk
+    rows = threads // 64 * 16
+    splits = -(-lq // rows)
+    nts = item_tiles(lq, lk, bk, rows, splits, causal)
+    items = pairs * splits
+    # rank r takes split splits - 1 - r // pairs; block i's li-th rank is
+    # li * grid + (i, or grid - 1 - i where li is odd)
+    length = [nts[splits - 1 - r // pairs] for r in range(items)]
+    busiest = 0
+    for i in range(grid):
+        n, li = 0, 0
+        while True:
+            r = li * grid + (grid - 1 - i if li & 1 else i)
+            if r >= items:
+                break
+            n += length[r]
+            li += 1
+        busiest = max(busiest, n)
+    return {"walked": sum(length), "full": items * tiles, "busiest": busiest}
 
 
 def geometry(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, bk: int, *,

@@ -411,17 +411,36 @@ def test_geometry_mirrors_pick_the_launchers_paths():
     assert code == 0 and smem <= geometry.MAX_SMEM and variant % 10 == 1
 
 
-@pytest.mark.parametrize("bk, want", [
+# the wide kernel's shared memory: the table and the row maxima, then Q
+# (16 rows a group, rows of DT * 8 + 4 floats) and a ring of slots, each
+# the larger of a float32 and a bf16 chunk: tiles of <= 128 keys in 3
+# slots at D <= 192 and 2 at D <= 256 of 64 float32 or 128 bf16 keys
+# (bf16 rows of DT * 8 + 8 values), tiles of <= 32 keys in 4 slots of 32
+def _wide_smem(groups, dt, slots, keys_f32, keys_bf16):
+    slot = max(keys_f32 * (dt * 8 + 4) * 4, keys_bf16 * (dt * 8 + 8) * 2)
+    return (320 + 8 * 16) * 4 + groups * 16 * (dt * 8 + 4) * 4 + slots * slot
+
+
+@pytest.mark.parametrize("d, bk, want", [
     # nemotron-4-340b's causal GQA at key tiles of 128: 4 row groups of two
     # warps a block, 16 query-row splits a head, one block an SM walking
-    # the 3072 items
-    (128, (132, 256, (320 + 4 * 16 * 196 + 128 * 196) * 4, 24161)),
-    # key tiles of 4 keys: 4 fragments of 8 keys
-    (4, (132, 256, (320 + 4 * 16 * 196 + 32 * 196) * 4, 24041))])
-def test_attention_geometry_at_head_dim_192(bk, want):
-    """D = 192 takes the wide kernel (DT 24): one stage, the tile's K and V
-    in turns in one buffer, within the 227 KB a block may use."""
-    code, geo = lut_attention.geometry(2, 96, 8, 1024, 1024, 192, bk,
+    # the 3072 items (NT 16, 3 slots)
+    # (the ids of the cases the test had before D = 256 was added)
+    pytest.param(192, 128, (132, 256, _wide_smem(4, 24, 3, 64, 128), 24163),
+                 id="128-want0"),
+    # key tiles of 4 keys (NT 4, 4 slots of 32)
+    pytest.param(192, 4, (132, 256, _wide_smem(4, 24, 4, 32, 32), 24044),
+                 id="4-want1"),
+    # the instances of D <= 256 (DT 32)
+    pytest.param(256, 128, (132, 256, _wide_smem(4, 32, 2, 64, 128), 32162),
+                 id="d256-128"),
+    pytest.param(256, 4, (132, 256, _wide_smem(4, 32, 4, 32, 32), 32044),
+                 id="d256-4")])
+def test_attention_geometry_at_head_dim_192(d, bk, want):
+    """D = 192 takes the wide kernel (DT 24), D = 256 its DT 32 build: K
+    and V stream through a ring of chunks, within the 227 KB a block may
+    use."""
+    code, geo = lut_attention.geometry(2, 96, 8, 1024, 1024, d, bk,
                                        sms=132, occupancy=_model)
     assert code == 0 and geo == want and geo[2] <= geometry.MAX_SMEM
 
