@@ -136,6 +136,30 @@ def _to_host(events: dict) -> dict:
     return {k: v.cpu().numpy() for k, v in events.items()}
 
 
+# the stages of a hop whose spans a traced hop hands its flight recorder
+HOP_STAGES = ("frontend", "embed", "encoder", "detector", "to_host")
+
+
+def _mark() -> tuple:
+    """Where a hop starts: the host clock, the active tracer (or None) and
+    the number of events it holds so far."""
+    tracer = telemetry.active_tracer()
+    return (time.perf_counter(), tracer,
+            len(tracer.events) if tracer is not None else 0)
+
+
+def _stage_ms(tracer, first: int) -> Optional[dict]:
+    """Milliseconds in each of ``HOP_STAGES`` among the spans ``tracer``
+    recorded from its ``first`` event on (None: no tracer, or no stage)."""
+    if tracer is None:
+        return None
+    out: dict = {}
+    for e in tracer.events[first:]:
+        if e["name"] in HOP_STAGES:
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e3
+    return out or None
+
+
 class StreamLanes:
     """``slots`` hop-synchronous audio lanes under one cell.
 
@@ -161,6 +185,13 @@ class StreamLanes:
     Hop accounting: ``cell_hops_total`` counts hops ingested per ACTIVE
     lane — the quantity a soak reconciles against the offered source hops
     to assert zero drops across churn and hot-swaps.
+
+    Spans (under an active ``telemetry`` tracer): ``hop`` over the whole
+    call, with ``detector`` (posteriors and the detector step) and
+    ``to_host`` (the events' copy to the host, where the host waits for
+    the card) inside it and the engine's spans beneath; ``join`` and
+    ``evict``.  A traced hop hands its stages' times to the cell's flight
+    recorder, which then attributes slow hops by measured stages.
     """
 
     def __init__(self, cell: ServeCell, fcfg, dcfg, *, chunk_hops: int = 1,
@@ -216,7 +247,7 @@ class StreamLanes:
         """Claim a lane for a new stream: zero its ring/frontend/detector
         state so nothing leaks from the previous occupant."""
         assert not self.active[lane], f"lane {lane} is occupied"
-        with torch.inference_mode():
+        with telemetry.span("join"), torch.inference_mode():
             self.state = stream_engine.reset_lane(self.state, lane)
             self.dstate = det.detector_reset_lane(self.dstate, lane)
         self.active[lane] = True
@@ -226,10 +257,11 @@ class StreamLanes:
 
     def evict(self, lane: int) -> None:
         assert self.active[lane], f"lane {lane} is already free"
-        self.active[lane] = False
-        m = self.cell.metrics
-        m.evictions.inc()
-        m.occupancy.set(self.n_active / len(self.active))
+        with telemetry.span("evict"):
+            self.active[lane] = False
+            m = self.cell.metrics
+            m.evictions.inc()
+            m.occupancy.set(self.n_active / len(self.active))
 
     # -- the hop -----------------------------------------------------------
 
@@ -255,14 +287,25 @@ class StreamLanes:
             self.state, logits = next(self._pipe.run(self.state, (chunk,)))
         return logits
 
-    def _account(self, t0: float, ingest) -> None:
+    def _detect(self, logits, state) -> dict:
+        """The detector on ``logits`` and its events on the host."""
+        with telemetry.span("detector"):
+            self.dstate, events = det.detector_step(
+                self.dstate, stream_engine.posteriors(logits), self.dcfg,
+                warm=stream_engine.warm(state))
+        with telemetry.span("to_host"):
+            return _to_host(events)
+
+    def _account(self, mark: tuple, ingest) -> None:
+        t0, tracer, first = mark
         m = self.cell.metrics
         dur_ms = 1e3 * (time.perf_counter() - t0)
         m.hop_ms.observe(dur_ms)
         m.hops.inc(int(sum(ingest)) if ingest is not None
                    else self.chunk_hops * self.n_active)
         if self.cell.flight is not None:
-            self.cell.flight.record_hop(dur_ms)
+            self.cell.flight.record_hop(dur_ms,
+                                        spans=_stage_ms(tracer, first))
 
     def hop(self, chunk, ingest=None) -> dict:
         """Advance all lanes by ``chunk`` — raw audio
@@ -274,15 +317,13 @@ class StreamLanes:
         ``ingest`` ([slots] ints) overrides the per-lane hop accounting
         for steps whose trailing chunk is zero-padded past a stream's end;
         default: ``chunk_hops`` for every active lane."""
-        t0 = time.perf_counter()
-        p = self.cell.handle.live_params()
-        with torch.inference_mode():
-            logits = self._encode_step(p, chunk)
-            self.dstate, events = det.detector_step(
-                self.dstate, stream_engine.posteriors(logits), self.dcfg,
-                warm=stream_engine.warm(self.state))
-            events = _to_host(events)
-        self._account(t0, ingest)
+        mark = _mark()
+        with telemetry.span("hop"):
+            p = self.cell.handle.live_params()
+            with torch.inference_mode():
+                logits = self._encode_step(p, chunk)
+                events = self._detect(logits, self.state)
+            self._account(mark, ingest)
         return events
 
     def run(self, chunks, ingest=None):
@@ -293,14 +334,11 @@ class StreamLanes:
         returns them; a hop's latency is the wall time since the previous
         one's events.  Params are read once, at the start."""
         assert self._pipe is not None, "run() drives pipelined lanes"
-        t0 = time.perf_counter()
+        mark = _mark()
         for state, logits in self._pipe.run(self.state, chunks):
             with torch.inference_mode():
                 self.state = state
-                self.dstate, events = det.detector_step(
-                    self.dstate, stream_engine.posteriors(logits), self.dcfg,
-                    warm=stream_engine.warm(state))
-                events = _to_host(events)
-            self._account(t0, ingest)
-            t0 = time.perf_counter()
+                events = self._detect(logits, state)
+            self._account(mark, ingest)
+            mark = _mark()
             yield events

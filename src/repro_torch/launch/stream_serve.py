@@ -233,9 +233,8 @@ def _serve(cell, sources, queue, fcfg, dcfg, chunk_hops, met):
                 chunk[i, :n] = a[offset[i]:offset[i] + n]
                 offset[i] += n
                 ingest[i] = n // fcfg.hop_len
-        with telemetry.span("hop", {"backend": eng.backend_name}):
-            events = lanes.hop(chunk, ingest=ingest)
-        with telemetry.span("detector"):
+        events = lanes.hop(chunk, ingest=ingest)   # records its own span
+        with telemetry.span("events"):
             for i in range(B):
                 sid = active[i]
                 if sid is None:

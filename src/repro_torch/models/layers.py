@@ -26,7 +26,12 @@ chunk's keys to its band; a ring cache (hybrid decode) passes
 kept by overwrite.
 
 ``apply_attention`` and ``apply_mlp`` emit the quantisation-health taps
-of their inputs (``telemetry.taps``; a no-op without a collector).
+of their inputs (``telemetry.taps``; a no-op without a collector).  Under
+an active ``telemetry`` tracer ``apply_attention``, ``apply_mlp`` and
+``apply_norm`` record the spans ``attention``, ``mlp`` and ``norm``: every
+family that builds its layers from them (KWT and the dense LMs among
+them) is split by layer in a trace; a residual add stays in the caller's
+span.
 
 The int8 KV cache (``cfg.quant.quantize_kv_cache``, the paper's eq 9 on
 the cache): each (token, KV head) vector is stored as int8 codes and one
@@ -48,6 +53,7 @@ from repro_torch.core import quant
 from repro_torch.core.tree import tree_leaves
 from repro_torch.dist.sharding import P
 from repro_torch.telemetry import taps as _health
+from repro_torch.telemetry import trace as _trace
 
 def executes_int(w, eq: str, cfg) -> bool:
     """Whether ``linear`` multiplies the stored integers of ``w`` (an
@@ -197,15 +203,16 @@ def norm_specs(cfg):
 
 
 def apply_norm(p, x, cfg, eps=1e-6):
-    x = x.to(torch.float32)
-    if cfg.norm == "layernorm":
-        # paper eqs (4)-(5): mean/variance normalise, then gamma/beta.
-        mu = x.mean(dim=-1, keepdim=True)
-        var = x.var(dim=-1, keepdim=True, unbiased=False)
-        y = (x - mu) * torch.rsqrt(var + eps)
-        return (y * p["scale"] + p["bias"]).to(_dtype(cfg))
-    ms = x.square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(ms + eps) * p["scale"]).to(_dtype(cfg))
+    with _trace.span("norm"):
+        x = x.to(torch.float32)
+        if cfg.norm == "layernorm":
+            # paper eqs (4)-(5): mean/variance normalise, then gamma/beta.
+            mu = x.mean(dim=-1, keepdim=True)
+            var = x.var(dim=-1, keepdim=True, unbiased=False)
+            y = (x - mu) * torch.rsqrt(var + eps)
+            return (y * p["scale"] + p["bias"]).to(_dtype(cfg))
+        ms = x.square().mean(dim=-1, keepdim=True)
+        return (x * torch.rsqrt(ms + eps) * p["scale"]).to(_dtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -396,73 +403,74 @@ def apply_attention(p, x, cfg, *, positions=None, cache=None,
     ``kv_len_valid``: every live slot is a valid past key."""
     if cfg.attn_impl not in ("xla", "flash_lut"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    b, sq, d = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    _health.tap_activation("attn_in", x, cfg)
-    wq, wk, wv = p["wq"], p["wk"], p["wv"]
-    if (cfg.int_exec and cfg.act_approx != "cuda"
-            and all(isinstance(w, quant.QTensor)
-                    and quant.int_exec_supported(w, "bsd,df->bsf")
-                    for w in (wq, wk, wv))):
-        # one fused integer projection instead of three — bitwise equal to
-        # the separate calls (see quant.int_exec_qkv).  The cuda plan sends
-        # Q, K and V through the matmul kernel one by one, as the
-        # reference's compiled kernel plan does.
-        qm = cfg.quant
-        q, k, v = quant.int_exec_qkv(
-            x, (wq, wk, wv),
-            x_exp=qm.input_exponent if qm is not None else 5,
-            residual_bits=qm.residual_bits if qm is not None else 16)
-    else:
-        q = linear(x, wq, "bsd,df->bsf", cfg)
-        k = linear(x, wk, "bsd,df->bsf", cfg)
-        v = linear(x, wv, "bsd,df->bsf", cfg)
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, sq, h, dh)
-    k = k.reshape(b, sq, kv, dh)
-    v = v.reshape(b, sq, kv, dh)
-    if cfg.qk_norm:
-        q = _rms(q, p["q_norm"]).to(x.dtype)
-        k = _rms(k, p["k_norm"]).to(x.dtype)
-    if cfg.use_rope:
-        if positions is None:
-            positions = torch.arange(sq, device=x.device)
-        cos, sin = rope_tables(torch.as_tensor(positions, device=x.device),
-                               dh, cfg.rope_theta)
-        cos, sin = cos[..., :, None, :], sin[..., :, None, :]
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    with _trace.span("attention"):
+        b, sq, d = x.shape
+        h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        _health.tap_activation("attn_in", x, cfg)
+        wq, wk, wv = p["wq"], p["wk"], p["wv"]
+        if (cfg.int_exec and cfg.act_approx != "cuda"
+                and all(isinstance(w, quant.QTensor)
+                        and quant.int_exec_supported(w, "bsd,df->bsf")
+                        for w in (wq, wk, wv))):
+            # one fused integer projection instead of three — bitwise
+            # equal to the separate calls (see quant.int_exec_qkv).  The
+            # cuda plan sends Q, K and V through the matmul kernel one by
+            # one, as the reference's compiled kernel plan does.
+            qm = cfg.quant
+            q, k, v = quant.int_exec_qkv(
+                x, (wq, wk, wv),
+                x_exp=qm.input_exponent if qm is not None else 5,
+                residual_bits=qm.residual_bits if qm is not None else 16)
+        else:
+            q = linear(x, wq, "bsd,df->bsf", cfg)
+            k = linear(x, wk, "bsd,df->bsf", cfg)
+            v = linear(x, wv, "bsd,df->bsf", cfg)
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q.reshape(b, sq, h, dh)
+        k = k.reshape(b, sq, kv, dh)
+        v = v.reshape(b, sq, kv, dh)
+        if cfg.qk_norm:
+            q = _rms(q, p["q_norm"]).to(x.dtype)
+            k = _rms(k, p["k_norm"]).to(x.dtype)
+        if cfg.use_rope:
+            if positions is None:
+                positions = torch.arange(sq, device=x.device)
+            cos, sin = rope_tables(torch.as_tensor(positions, device=x.device),
+                                   dh, cfg.rope_theta)
+            cos, sin = cos[..., :, None, :], sin[..., :, None, :]
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
 
-    if cache is None:
-        if _use_flash_lut(cfg, kv_len_valid):
-            out = _flash(q, k, v, cfg, causal)
+        if cache is None:
+            if _use_flash_lut(cfg, kv_len_valid):
+                out = _flash(q, k, v, cfg, causal)
+            else:
+                out = sdpa(q, k, v, cfg, q_offset=0, kv_len_valid=kv_len_valid,
+                           causal=causal)
+            new_cache = None
         else:
-            out = sdpa(q, k, v, cfg, q_offset=0, kv_len_valid=kv_len_valid,
+            idx = cache_index
+            if _kv_quantized(cfg):
+                (kq, ks), (vq, vs) = _q8_vec(k), _q8_vec(v)
+                idx = _write_cache(cache, {"k": kq, "ks": ks, "v": vq,
+                                           "vs": vs}, idx, sq)
+                ck = _q8_vec_decode(cache["k"], cache["ks"], x.dtype)
+                cv = _q8_vec_decode(cache["v"], cache["vs"], x.dtype)
+            else:
+                idx = _write_cache(cache, {"k": k, "v": v}, idx, sq)
+                ck, cv = cache["k"], cache["v"]
+            valid = (idx + sq) if kv_len_valid is None else kv_len_valid
+            # a write of more than Q_CHUNK tokens is the prefill of a fresh
+            # cache (index 0): a start of 0 lets sdpa chunk the queries
+            q_off = idx if sq <= Q_CHUNK else 0
+            out = sdpa(q, ck, cv, cfg, q_offset=q_off, kv_len_valid=valid,
                        causal=causal)
-        new_cache = None
-    else:
-        idx = cache_index
-        if _kv_quantized(cfg):
-            (kq, ks), (vq, vs) = _q8_vec(k), _q8_vec(v)
-            idx = _write_cache(cache, {"k": kq, "ks": ks, "v": vq, "vs": vs},
-                               idx, sq)
-            ck = _q8_vec_decode(cache["k"], cache["ks"], x.dtype)
-            cv = _q8_vec_decode(cache["v"], cache["vs"], x.dtype)
-        else:
-            idx = _write_cache(cache, {"k": k, "v": v}, idx, sq)
-            ck, cv = cache["k"], cache["v"]
-        valid = (idx + sq) if kv_len_valid is None else kv_len_valid
-        # a write of more than Q_CHUNK tokens is the prefill of a fresh
-        # cache (index 0): a start of 0 lets sdpa chunk the queries
-        q_off = idx if sq <= Q_CHUNK else 0
-        out = sdpa(q, ck, cv, cfg, q_offset=q_off, kv_len_valid=valid,
-                   causal=causal)
-        new_cache = cache
-    out = linear(out.reshape(b, sq, h * dh), p["wo"], "bsf,fd->bsd", cfg)
-    if "bo" in p:
-        out = out + p["bo"]
-    return out.to(x.dtype), new_cache
+            new_cache = cache
+        out = linear(out.reshape(b, sq, h * dh), p["wo"], "bsf,fd->bsd", cfg)
+        if "bo" in p:
+            out = out + p["bo"]
+        return out.to(x.dtype), new_cache
 
 
 def _write_cache(cache, new, idx, sq):
@@ -598,18 +606,19 @@ def mlp_specs(cfg):
 
 
 def apply_mlp(p, x, cfg):
-    _health.tap_activation("mlp_in", x, cfg)
-    act = approx.activation(cfg.activation, cfg.act_approx)
-    if cfg.gated_mlp:
-        gate = act(linear(x, p["w_gate"], "bsd,df->bsf", cfg))
-        up = linear(x, p["w_up"], "bsd,df->bsf", cfg)
-        return linear((gate * up).to(x.dtype), p["w_down"],
-                      "bsf,fd->bsd", cfg).to(x.dtype)
-    h = linear(x, p["w1"], "bsd,df->bsf", cfg)
-    if "b1" in p:
-        h = h + p["b1"]
-    h = act(h).to(x.dtype)
-    out = linear(h, p["w2"], "bsf,fd->bsd", cfg)
-    if "b2" in p:
-        out = out + p["b2"]
-    return out.to(x.dtype)
+    with _trace.span("mlp"):
+        _health.tap_activation("mlp_in", x, cfg)
+        act = approx.activation(cfg.activation, cfg.act_approx)
+        if cfg.gated_mlp:
+            gate = act(linear(x, p["w_gate"], "bsd,df->bsf", cfg))
+            up = linear(x, p["w_up"], "bsd,df->bsf", cfg)
+            return linear((gate * up).to(x.dtype), p["w_down"],
+                          "bsf,fd->bsd", cfg).to(x.dtype)
+        h = linear(x, p["w1"], "bsd,df->bsf", cfg)
+        if "b1" in p:
+            h = h + p["b1"]
+        h = act(h).to(x.dtype)
+        out = linear(h, p["w2"], "bsf,fd->bsd", cfg)
+        if "b2" in p:
+            out = out + p["b2"]
+        return out.to(x.dtype)

@@ -33,12 +33,14 @@ fixed-shape forward in a CUDA graph is a follow-up.
 Telemetry: under an active ``telemetry`` tracer, ``forward``,
 ``stream_step``, ``prefill`` and ``decode_step`` record the reference's
 spans (``forward`` / ``unpack`` / ``encode`` / ``taps``, ``stream_step`` /
-``unpack`` / ``hop``, ``prefill`` / ``decode_step`` over ``encode``), each
-fenced with ``torch.cuda.synchronize`` of the engine's device so that a
-span measures the device work; with no tracer the path is the untraced
-one, with no synchronize.  ``compile_model(taps=True)`` plans the
-quantisation-health aux (``telemetry.taps``): a second, tapped pass whose
-statistics ``forward`` returns beside the logits of the untapped pass.
+``unpack`` / ``hop``, ``prefill`` / ``decode_step`` over ``encode``); the
+model's own spans (``stream.engine``'s stages, ``models.layers``' layers)
+nest inside them.  No span synchronizes: a span times the host, and its
+device time is read from a ``torch.profiler`` trace of the same run
+(``telemetry.trace``); with no tracer the path is the untraced one.
+``compile_model(taps=True)`` plans the quantisation-health aux
+(``telemetry.taps``): a second, tapped pass whose statistics ``forward``
+returns beside the logits of the untapped pass.
 :class:`EngineHandle` is the swap-safe reference a serving cell holds.
 
 Device rule: ``device=None`` means the card and raises where there is
@@ -127,11 +129,6 @@ class Engine:
     def _input(self, x):
         return torch.as_tensor(x).to(self.device)
 
-    def _fence(self):
-        """Wait for the device work queued so far (inside spans only)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     # -- inference entry points --------------------------------------------
 
     def forward(self, x):
@@ -156,9 +153,7 @@ class Engine:
         if not (self.int_resident and not self.int_exec):
             return self.params
         with tr.span("unpack"):
-            lp = self.live_params()
-            self._fence()
-            return lp
+            return self.live_params()
 
     def _forward_instrumented(self, tr, x):
         cfg = self.exec_cfg
@@ -166,18 +161,14 @@ class Engine:
             if tr is None:                         # taps only, no tracing
                 lp, x = self.live_params(), self._input(x)
                 return self._mod.forward(lp, x, cfg), self._run_taps(lp, x)
-            # Spans measure device work: each stage is fenced with a
-            # synchronize of the engine's device (only while tracing).
             with tr.span("forward", {"backend": self.backend.name}):
                 lp = self._live_traced(tr)
                 with tr.span("encode"):
                     x = self._input(x)
                     logits = self._mod.forward(lp, x, cfg)
-                    self._fence()
                 if self.taps:
                     with tr.span("taps"):
                         aux = self._run_taps(lp, x)
-                        self._fence()
                     return logits, aux
             return logits
 
@@ -221,10 +212,8 @@ class Engine:
         with tr.span("stream_step", {"backend": self.backend.name}):
             lp = self._live_traced(tr)
             with tr.span("hop"), torch.inference_mode():
-                out = stream_engine.stream_step(
+                return stream_engine.stream_step(
                     lp, state, self._input(chunk), self.exec_cfg, fcfg)
-                self._fence()
-                return out
 
     # -- LM serving entry points ------------------------------------------
 
@@ -265,9 +254,7 @@ class Engine:
         with tr.span(what, {"backend": self.backend.name}):
             lp = self._live_traced(tr)
             with tr.span("encode"), torch.inference_mode():
-                out = fn(lp, self._input(tokens), self.exec_cfg, state)
-                self._fence()
-                return out
+                return fn(lp, self._input(tokens), self.exec_cfg, state)
 
     def _require_kwt(self, what: str):
         if self.exec_cfg.family != "kwt":

@@ -16,6 +16,11 @@ ring): ``stream_step`` is pure ``(params, state, chunk) -> (state,
 logits)``.  The assembled window passes ``dist.ctx.shard_activations``
 as in the reference (the packed multi-stream batch over the DP axes on
 a mesh; a no-op off one).
+
+Under an active ``telemetry`` tracer a hop records ``frontend`` (the MFCC
+frontend), ``embed`` (the new frames' patch embedding and the ring
+pushes) and ``encoder`` (the assembled window through the encoder), from
+``stream_step`` and ``stream_step_frames`` alike.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from repro_torch.dist import ctx
 from repro_torch.models import kwt
 from repro_torch.stream import features
 from repro_torch.stream import ring
+from repro_torch.telemetry import trace as _trace
 
 
 def window_frames(cfg) -> int:
@@ -57,16 +63,19 @@ def init_stream_state(cfg, fcfg: features.FrontendConfig, batch: int,
 def _advance(params, state: dict, fe: dict, frames: torch.Tensor,
              cfg) -> tuple[dict, torch.Tensor]:
     new = {"frontend": fe}
-    if "feat" in state:
-        new["feat"] = ring.ring_push(state["feat"], frames)
-    emb = ring.ring_push(state["embed"], kwt.embed_frames(params, frames, cfg))
-    new["embed"] = emb
+    with _trace.span("embed"):
+        if "feat" in state:
+            new["feat"] = ring.ring_push(state["feat"], frames)
+        emb = ring.ring_push(state["embed"],
+                             kwt.embed_frames(params, frames, cfg))
+        new["embed"] = emb
     # The reference puts an optimization_barrier here so that XLA cannot
     # fuse the hop-sized producers into the encoder and make its rounding
     # depend on the chunk size.  Eager PyTorch fuses nothing across calls:
     # the encoder sees the assembled [B, T, d] window as offline does.
-    window = ctx.shard_activations(ring.ring_window(emb))
-    logits = kwt.encode_window(params, window, cfg)
+    with _trace.span("encoder"):
+        window = ctx.shard_activations(ring.ring_window(emb))
+        logits = kwt.encode_window(params, window, cfg)
     return new, logits
 
 
@@ -78,7 +87,8 @@ def stream_step(params, state: dict, chunk: torch.Tensor, cfg,
     :func:`warm` is True for the lane (a full receptive field of real
     frames); before that the window still contains init zeros.
     """
-    fe, frames = features.frontend_push(state["frontend"], chunk, fcfg)
+    with _trace.span("frontend"):
+        fe, frames = features.frontend_push(state["frontend"], chunk, fcfg)
     return _advance(params, state, fe, frames, cfg)
 
 

@@ -3,7 +3,9 @@
 The port of ``repro.telemetry``, in layers:
 
 * :mod:`repro_torch.telemetry.trace`   — host-side nested spans ->
-  Chrome/Perfetto trace-event JSON; free when disabled.
+  Chrome/Perfetto trace-event JSON and, under ``profiler=True``,
+  ``torch.profiler`` ranges on the same clock; never synchronize; free
+  when disabled.
 * :mod:`repro_torch.telemetry.metrics` — counters / gauges / ring-reservoir
   histograms with Prometheus-text + JSON export and the shared
   :func:`latency_summary` schema; :func:`log` structured log lines.
@@ -16,12 +18,13 @@ The port of ``repro.telemetry``, in layers:
 * :mod:`repro_torch.telemetry.cell`    — the serving cell's ``cell_*``
   metric vocabulary.
 
-:func:`annotate` names a stage for ``torch.profiler`` (a
-``torch.profiler.record_function`` pass-through): metadata-only, shows up
-in profiler traces, never changes numerics.
+The port's spans (all under an active tracer only): ``StreamLanes`` records
+``hop`` (over ``detector`` and ``to_host``), ``join`` and ``evict``;
+``Engine`` its entry points (``forward`` / ``unpack`` / ``encode`` /
+``taps``, ``stream_step`` / ``hop``, ``prefill`` / ``decode_step``);
+``stream.engine`` ``frontend`` / ``embed`` / ``encoder`` inside a hop; and
+``models.layers`` ``attention`` / ``mlp`` / ``norm`` inside every layer.
 """
-
-from torch.profiler import record_function as annotate
 
 from repro_torch.telemetry import taps
 from repro_torch.telemetry.cell import CellMetrics, make_cell_metrics
@@ -64,7 +67,6 @@ __all__ = [
     "TelemetryFormatError",
     "Tracer",
     "active_tracer",
-    "annotate",
     "default_registry",
     "disable",
     "enable",

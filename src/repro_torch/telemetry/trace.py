@@ -1,26 +1,32 @@
-"""Span tracing: nested wall-clock spans -> Chrome/Perfetto trace JSON.
+"""Span tracing: nested host spans -> Chrome/Perfetto trace JSON.
 
 The paper's 5x story started from per-op clock-cycle attribution (Figs
 3-5: GELU/SoftMax dominate the 26M-cycle inference); this module is the
 repo's analogue for Engine plans.  A :class:`Tracer` records nested
-``span("unpack")`` / ``span("encode")`` / ... context managers as Chrome
-trace-event *complete* events (``ph: "X"``, microsecond ``ts``/``dur``)
-that load directly into ``chrome://tracing`` / Perfetto, plus an optional
-pass-through to ``torch.profiler.record_function`` and an NVTX range, so
-the same span names appear in ``torch.profiler`` traces and on the CUDA
+``span("hop")`` / ``span("encoder")`` / ``span("attention")`` ... context
+managers as Chrome trace-event *complete* events (``ph: "X"``,
+microsecond ``ts``/``dur``) that load directly into ``chrome://tracing``
+/ Perfetto, and, under ``profiler=True``, as ``record_function`` ranges
+(``torch._C._profiler._RecordFunctionFast``) in the profiler's host
 timeline.
 
-Design constraints (tests/test_telemetry.py):
+Design constraints (tests/test_torch_telemetry.py):
 
 * **Disabled fast path is free.**  ``telemetry.span(name)`` with no
   active tracer returns one shared no-op context manager — no object,
   tuple or dict is allocated per call, so instrumented hot paths
-  (``Engine.forward``) cost one global read + ``None`` check when
-  tracing is off.
-* **Spans measure device work, not dispatch.**  Callers fence the
-  device work with ``torch.cuda.synchronize(device)`` *inside* the span
-  when (and only when) a tracer is active and the work is on a CUDA
-  device; asynchronous launch is preserved otherwise.
+  (``Engine.forward``, every layer of ``models/layers.py``) cost one
+  global read + ``None`` check when tracing is off.
+* **Spans time the host and never wait for the device.**  No span
+  synchronizes, so a traced program queues its device work as the
+  untraced one does; a span's ``dur`` is the host's time inside it.
+  The device time of a span is read from a ``torch.profiler`` trace: the
+  kernels whose launches fall inside the span's range.  Where the host
+  does wait (a copy to the host), that wait has a span of its own.
+* **One clock with the device trace.**  ``ts`` is Unix-epoch
+  microseconds, the clock ``torch.profiler`` stamps its host and device
+  events on, so an exported trace and a profiler trace lie over one
+  another; ``dur`` comes from ``time.perf_counter_ns``.
 * **Nesting is explicit.**  Each event records its parent span name in
   ``args["parent"]``, which is what :func:`span_coverage` uses to check
   that named child stages account for a parent's wall time.
@@ -33,6 +39,8 @@ import json
 import os
 import threading
 import time
+
+import torch
 
 
 class _NoopSpan:
@@ -53,34 +61,31 @@ NOOP_SPAN = _NoopSpan()
 class _Span:
     """One live span of an enabled tracer (created per ``Tracer.span``)."""
 
-    __slots__ = ("_tracer", "name", "args", "_t0", "_annotation", "_nvtx")
+    __slots__ = ("_tracer", "name", "args", "_ts", "_t0", "_annotation")
 
     def __init__(self, tracer, name, args):
         self._tracer = tracer
         self.name = name
         self.args = args
-        self._t0 = 0
+        self._ts = self._t0 = 0
         self._annotation = None
-        self._nvtx = False
 
     def __enter__(self):
         tr = self._tracer
         tr._stack().append(self.name)
         if tr.profiler:
-            import torch
-            self._annotation = torch.profiler.record_function(self.name)
+            # the C++ range: ``torch.profiler.record_function`` enters
+            # through Python and ``torch.ops``, some twenty times the host
+            # time a span, on the critical path of a host-bound hop
+            self._annotation = torch._C._profiler._RecordFunctionFast(
+                self.name)
             self._annotation.__enter__()
-            if torch.cuda.is_available():
-                torch.cuda.nvtx.range_push(self.name)
-                self._nvtx = True
+        self._ts = time.time_ns()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter_ns()
-        if self._nvtx:
-            import torch
-            torch.cuda.nvtx.range_pop()
         if self._annotation is not None:
             self._annotation.__exit__(exc_type, exc, tb)
         tr = self._tracer
@@ -89,23 +94,21 @@ class _Span:
         args = dict(self.args) if self.args else {}
         if stack:
             args["parent"] = stack[-1]
-        tr._record(self.name, self._t0, t1, args)
+        tr._record(self.name, self._ts, t1 - self._t0, args)
         return False
 
 
 class Tracer:
     """Collects spans as Chrome trace-event JSON (``ph: "X"`` events).
 
-    ``profiler=True`` additionally wraps every span in
-    ``torch.profiler.record_function`` (and, where there is a card, an
-    NVTX range) so the names show up in traces that ``torch.profiler``
-    captures.
+    ``profiler=True`` additionally opens a ``record_function`` range for
+    every span, so the names show up in traces that ``torch.profiler``
+    captures, on the clock of their ``ts``.
     """
 
     def __init__(self, *, profiler: bool = False):
         self.events: list[dict] = []
         self.profiler = profiler
-        self._epoch = time.perf_counter_ns()
         self._local = threading.local()
         self._lock = threading.Lock()
 
@@ -115,10 +118,10 @@ class Tracer:
             stack = self._local.stack = []
         return stack
 
-    def _record(self, name, t0_ns, t1_ns, args):
+    def _record(self, name, ts_ns, dur_ns, args):
         ev = {"name": name, "cat": "repro", "ph": "X",
-              "ts": (t0_ns - self._epoch) / 1e3,        # microseconds
-              "dur": (t1_ns - t0_ns) / 1e3,
+              "ts": ts_ns / 1e3,                # Unix-epoch microseconds
+              "dur": dur_ns / 1e3,
               "pid": os.getpid(), "tid": threading.get_ident()}
         if args:
             ev["args"] = args
@@ -128,16 +131,6 @@ class Tracer:
     def span(self, name: str, args: dict | None = None) -> _Span:
         """Context manager timing one named (nested) stage."""
         return _Span(self, name, args)
-
-    def instant(self, name: str, args: dict | None = None):
-        """A zero-duration marker event (``ph: "i"``)."""
-        ev = {"name": name, "cat": "repro", "ph": "i", "s": "t",
-              "ts": (time.perf_counter_ns() - self._epoch) / 1e3,
-              "pid": os.getpid(), "tid": threading.get_ident()}
-        if args:
-            ev["args"] = args
-        with self._lock:
-            self.events.append(ev)
 
     # -- inspection / export ----------------------------------------------
 

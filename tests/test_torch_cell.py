@@ -47,7 +47,7 @@ from repro_torch.cell import admission as admission_mod
 from repro_torch.checkpoint import manager
 from repro_torch.configs import registry
 from repro_torch.core import quant
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch import serve_common
 from repro_torch.launch import stream_serve
 from repro_torch.models import kwt
@@ -383,6 +383,88 @@ def test_stream_lanes_lifecycle_and_ledger(kwt_setup):
         assert m.hops.value == 3 * 2 + 1 + 1
         assert m.dropped_hops.value == 0
         assert lanes.free_lanes() == [1]
+
+
+def _pairs(tracer) -> list:
+    return [(e["name"], e.get("args", {}).get("parent"))
+            for e in tracer.events]
+
+
+def test_traced_lanes_record_the_hop_span_tree(kwt_setup):
+    """Under a tracer a hop records ``hop`` > ``stream_step`` > ``hop`` >
+    {``frontend``, ``embed``, ``encoder``} and ``hop`` > {``detector``,
+    ``to_host``}; ``join`` and ``evict`` record theirs.  Events and lane
+    state are the untraced lanes' bit for bit."""
+    cfg, params = kwt_setup
+    eng = _compile(cfg, params, "lut")
+    cell = cellmod.ServeCell(eng, slots=2, registry=telemetry.Registry())
+    rng = np.random.RandomState(5)
+    chunks = [rng.randn(2, 2 * HOP).astype(np.float32) for _ in range(3)]
+    with cell:
+        plain = cell.stream_lanes(FCFG, det.DetectorConfig(), chunk_hops=2)
+        traced = cell.stream_lanes(FCFG, det.DetectorConfig(), chunk_hops=2)
+        for lanes in (plain, traced):
+            lanes.join(0)
+            lanes.join(1)
+        want = [plain.hop(c) for c in chunks]
+        with telemetry.tracing() as tr:
+            got = [traced.hop(c) for c in chunks]
+            traced.evict(1)
+            traced.join(1)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a["score"], b["score"])
+        np.testing.assert_array_equal(a["fired"], b["fired"])
+    plain.evict(1)
+    plain.join(1)
+    for a, b in zip(tree_leaves(plain.state), tree_leaves(traced.state)):
+        assert torch.equal(a, b)
+    pairs = _pairs(tr)
+    n = len(chunks)
+    for pair in (("hop", None), ("stream_step", "hop"),
+                 ("hop", "stream_step"), ("frontend", "hop"),
+                 ("embed", "hop"), ("encoder", "hop"),
+                 ("detector", "hop"), ("to_host", "hop")):
+        assert pairs.count(pair) == n, pair
+    assert pairs.count(("join", None)) == pairs.count(("evict", None)) == 1
+    # the layers sit inside the encoder
+    assert ("attention", "encoder") in pairs and ("norm", "encoder") in pairs
+
+
+def test_traced_pipelined_lanes_record_detector_and_to_host(kwt_setup):
+    cfg, params = kwt_setup
+    cell = cellmod.ServeCell(_compile(cfg, params, "float"), slots=2,
+                             registry=telemetry.Registry())
+    chunks = [np.zeros((2, HOP), np.float32) for _ in range(3)]
+    with cell:
+        lanes = cell.stream_lanes(FCFG, det.DetectorConfig(), pipelined=True)
+        lanes.join(0)
+        with telemetry.tracing() as tr:
+            assert len(list(lanes.run(chunks))) == len(chunks)
+    pairs = _pairs(tr)
+    assert pairs.count(("detector", None)) == len(chunks)
+    assert pairs.count(("to_host", None)) == len(chunks)
+
+
+def test_traced_cell_flight_dump_attributes_measured_stages(kwt_setup,
+                                                            tmp_path):
+    """A traced hop hands its stage times to the flight recorder, whose
+    dump then attributes by measured stages, not the cost model's."""
+    cfg, params = kwt_setup
+    cell = cellmod.ServeCell(
+        _compile(cfg, params, "lut"), slots=2,
+        registry=telemetry.Registry(),
+        flight=telemetry.FlightConfig(dump_dir=str(tmp_path)))
+    with cell:
+        lanes = cell.stream_lanes(FCFG, det.DetectorConfig())
+        lanes.join(0)
+        with telemetry.tracing():
+            for _ in range(3):
+                lanes.hop(np.zeros((2, HOP), np.float32))
+    stages = {"frontend", "embed", "encoder", "detector", "to_host"}
+    assert set(cell.flight.window()[-1].spans) == stages
+    att = json.load(open(cell.flight.dump("manual")))["attribution"]
+    assert att["method"] == "measured-spans"
+    assert set(att["stage_ms"]) == stages
 
 
 def test_stream_lanes_pipelined_matches_joint(kwt_setup):

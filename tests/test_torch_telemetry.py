@@ -209,17 +209,15 @@ def test_trace_validates_against_chrome_schema(tmp_path):
                 pass
             with telemetry.span("encode"):
                 pass
-        tr.instant("marker")
     path = tr.save(str(tmp_path / "trace.json"))
     n = telemetry.validate_chrome_trace(path)
-    assert n == 4
+    assert n == 3
     obj = json.load(open(path))
     by_name = {e["name"]: e for e in obj["traceEvents"]}
     assert by_name["unpack"]["args"]["parent"] == "forward"
     assert by_name["encode"]["ph"] == "X" and by_name["encode"]["dur"] >= 0
-    assert by_name["marker"]["ph"] == "i"
     # and the reference's validator accepts the port's trace
-    assert jcheck.validate_chrome_trace(path) == 4
+    assert jcheck.validate_chrome_trace(path) == 3
 
 
 def test_trace_schema_violations_rejected():
@@ -251,6 +249,24 @@ def test_profiler_spans_reach_torch_profiler():
                 torch.ones(4).sum()
     assert tr.durations_us("stage_x")
     assert "stage_x" in {e.key for e in prof.key_averages()}
+
+
+def test_span_ts_is_on_the_profilers_clock():
+    """A span's exported ``ts`` lies within 1 ms of the start of its
+    ``record_function`` event, so the two traces lie over one another."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with telemetry.tracing(profiler=True) as tr:
+            for _ in range(3):
+                with telemetry.span("stage_y"):
+                    torch.ones(4).sum()
+    theirs = sorted(e.start_ns() / 1e3
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name() == "stage_y")
+    ours = sorted(e["ts"] for e in tr.events)
+    assert len(theirs) == len(ours) == 3
+    for a, b in zip(ours, theirs):
+        assert abs(a - b) < 1e3, (a, b)
 
 
 def test_prometheus_export_validates():
@@ -347,10 +363,85 @@ def test_engine_forward_disabled_path_unchanged(params, mfcc):
         traced = eng.forward(mfcc)
     assert torch.equal(base, traced)        # tracing never changes numerics
     names = {e["name"] for e in tr.events}
-    assert names == {"forward", "encode"}
+    assert names == {"forward", "encode", "attention", "mlp", "norm"}
     after = eng.forward(mfcc)               # disabled again -> no new events
     assert torch.equal(base, after)
-    assert len(tr.events) == 2
+    assert len(tr.events) == 2 + 4 * CFG.n_layers
+
+
+def _dense_lm(n_layers=2):
+    from repro_torch.models import transformer
+    cfg = registry.get("internlm2-1.8b").smoke.with_(n_layers=n_layers)
+    p = transformer.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12))
+    return cfg, p, tokens
+
+
+@pytest.mark.parametrize("family", ["kwt", "dense"])
+def test_layer_spans_once_per_layer(params, mfcc, family):
+    """Every layer records ``attention`` and ``mlp`` once; KWT's post-norm
+    layer records ``norm`` twice.  Tracing never changes the logits."""
+    if family == "kwt":
+        cfg = CFG.with_(n_layers=2)
+        p = kwt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        x = mfcc
+    else:
+        cfg, p, x = _dense_lm()
+    eng = runtime.compile_model(cfg, p, backend="lut", device="cpu")
+    base = eng.forward(x)
+    with telemetry.tracing() as tr:
+        traced = eng.forward(x)
+    assert torch.equal(base, traced)
+    pairs = [(e["name"], e.get("args", {}).get("parent"))
+             for e in tr.events if e["name"] in ("attention", "mlp", "norm")]
+    n = cfg.n_layers
+    assert pairs.count(("attention", "encode")) == n
+    assert pairs.count(("mlp", "encode")) == n
+    if family == "kwt":
+        assert pairs.count(("norm", "encode")) == 2 * n
+    assert len(pairs) == len([q for q in pairs if q[1] == "encode"])
+
+
+def _trace_allocations(fn) -> list:
+    """Allocations made in ``telemetry/trace.py`` while ``fn`` runs."""
+    fn()                                    # warm any lazy caches
+    tracemalloc.start()
+    snap1 = tracemalloc.take_snapshot()
+    fn()
+    snap2 = tracemalloc.take_snapshot()
+    tracemalloc.stop()
+    return [st for st in snap2.compare_to(snap1, "lineno")
+            if st.size_diff > 0
+            and "repro_torch/telemetry/trace.py" in str(st.traceback)]
+
+
+def test_disabled_tracing_allocates_no_span_in_a_hop_or_a_forward(params,
+                                                                   mfcc):
+    """With no tracer, a lanes hop (with its join and evict) and an LM
+    forward make no span object; under a tracer the same calls do."""
+    from repro_torch.cell import cell as cellmod
+    from repro_torch.stream import detector as det
+    from repro_torch.stream import features
+    eng = runtime.compile_model(CFG, params, backend="lut", device="cpu")
+    cfg, p, tokens = _dense_lm(1)
+    lm = runtime.compile_model(cfg, p, backend="lut", device="cpu")
+    fcfg = features.FrontendConfig()
+    cell = cellmod.ServeCell(eng, slots=2, registry=telemetry.Registry())
+    chunk = np.zeros((2, fcfg.hop_len), np.float32)
+    with cell:
+        lanes = cell.stream_lanes(fcfg, det.DetectorConfig())
+        lanes.join(0)
+
+        def calls():
+            lanes.join(1)
+            lanes.hop(chunk)
+            lanes.evict(1)
+            eng.forward(mfcc)
+            lm.forward(tokens)
+        telemetry.disable()
+        assert not _trace_allocations(calls)
+        with telemetry.tracing():
+            assert _trace_allocations(calls)
 
 
 def test_engine_spans_by_plan(params, mfcc):
